@@ -6,20 +6,29 @@ Phases, in order; any failure exits non-zero:
   2. print the card's name and power limit (nvidia-smi);
   3. build every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
      all started together) and load it;
-  4. hold each kernel against its plain PyTorch version on the card, in fp32
-     and bf16, at the main path's shape and at a short and a long case;
-  5. drive the main path through the port's entry points: SUN-M 5-way 1-shot
-     15-query episodic eval, MetaBaseline over visformer_micro_80 at full
-     width and depth, seeded weights, BN folded, bf16, fused attention on,
-     on the synthetic 20 x 600 dataset resident on the card; the kernel's
-     launch count must be 2 per episode batch. Then the same episodes in fp32
-     (TF32 off), fused-kernel path against plain-attention path;
-  6. time the main path (episodes/s) and the kernel, its plain version and
+  4. hold each kernel against its plain PyTorch version on the card: fused
+     MHSA in fp32 and bf16 at the SUN-M shape and at a short and a long case;
+     Sinkhorn in fp32 at the SUN-D grid and fcn shapes, a ragged case and the
+     kernel's N limit, with the output pre-filled with NaN;
+  5. SUN-M: 5-way 1-shot 15-query episodic eval, MetaBaseline over
+     visformer_micro_80 at full width and depth, seeded weights, BN folded,
+     bf16, fused attention on, on the synthetic 20 x 600 dataset resident on
+     the card; the MHSA launch count must be 2 per episode batch. Then the
+     same episodes in fp32 (TF32 off), fused-kernel path against
+     plain-attention path;
+  6. SUN-D: DeepEMD over the same encoder (BN unfolded, as the JAX SUN-D eval
+     runs it), ``solver: sinkhorn_pallas``, bf16 encoder, fp32 EMD: 1-shot
+     grid (1 Sinkhorn and 2 MHSA launches per episode batch), then fp32 with
+     the kernel against ``sinkhorn_detached`` on the same episodes; 1-shot
+     fcn (N = 25); one batch of 5-shot grid with SFC;
+  7. time both paths (episodes/s, the kernel against its alternative in
+     turns) and each kernel, its plain version and, for MHSA,
      ``scaled_dot_product_attention`` (a yardstick only) beside the bound;
-  7. print the kernels' JSON line, then the result line.
+  8. print the kernels' JSON line, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
-(``--profile DIR`` also writes a torch.profiler table of one episode batch.)
+(``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
+SUN-D grid episode batch.)
 """
 
 from __future__ import annotations
@@ -36,9 +45,19 @@ WAY, SHOT, QUERY = 5, 1, 15
 EP_PER_BATCH = 128          # the bench configuration
 N_EPISODES = 256            # main-path run: 2 episode batches
 N_TIMED = 1024              # episodes/s run: 8 episode batches
+SUND_EP_PER_BATCH = 8       # SUN-D: 8 * 80 images * 13 patches = 8,320 encoder images
+SUND_EPISODES = 64          # SUN-D grid run: 8 episode batches
+SUND_FCN_EPISODES = 32
+SUND_TIMED = 32
+SFC_KW = {"steps": 100, "lr": 100.0, "batch_size": 4}  # the SUN-D eval CLI's defaults
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+# special-function units: 16 exp2/log2 results per clock per SM on compute
+# capability 9.0 (NVIDIA's arithmetic-throughput table), 132 SMs at the
+# 1.98 GHz boost clock
+SFU_PER_S = 132 * 16 * 1.98e9
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+SINKHORN_TOL = 1e-4
 
 
 def _fail(msg: str) -> None:
@@ -74,6 +93,162 @@ def _bound(b, h, t, hd, dtype):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def _sinkhorn_bound(b, n1, n2, iters):
+    """Least time for one Sinkhorn call: cost, w1, w2 read once and the flow
+    written once over the memory rate, or the larger of its exp/log count over
+    the special-function rate and its other fp32 operations (add, max,
+    subtract, sum per element per half-round) over the fp32 rate."""
+    bytes_ = 4 * b * (2 * n1 * n2 + n1 + n2)
+    sfu = b * (iters * (2 * n1 * n2 + n1 + n2) + n1 * n2 + n1 + n2)
+    flops = b * iters * 2 * n1 * n2 * 4
+    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    by_ops = max(sfu / SFU_PER_S, flops / PEAK_FLOPS["torch.float32"]) * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _ot_problem(b, n1, n2, gen, dev):
+    """Costs 1 - cos in [0, 2] and normalized marginals, as DeepEMD hands them over."""
+    import torch
+
+    from fewshot_vit_tpu_torch.ops.emd import normalize_weights
+
+    cost = 2.0 * torch.rand(b, n1, n2, generator=gen, device=dev)
+    w1 = normalize_weights(torch.rand(b, n1, generator=gen, device=dev))
+    w2 = normalize_weights(torch.rand(b, n2, generator=gen, device=dev))
+    return cost, w1, w2
+
+
+def _check_sinkhorn(gen, dev):
+    """Phase 4, Sinkhorn: kernel vs plain version; returns max|d| per case."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import (
+        MAX_NODES,
+        sinkhorn_pallas,
+        sinkhorn_reference,
+    )
+
+    b_main = SUND_EP_PER_BATCH * WAY * QUERY * WAY  # (query, prototype) pairs per batch
+    errs = {}
+    for name, (b, n1, n2) in (("grid", (b_main, 13, 13)), ("fcn", (b_main, 25, 25)),
+                              ("ragged", (5, 9, 13)), ("limit", (64, MAX_NODES, MAX_NODES))):
+        cost, w1, w2 = _ot_problem(b, n1, n2, gen, dev)
+        got = sinkhorn_pallas(cost, w1, w2, out=torch.full_like(cost, float("nan")))
+        want = sinkhorn_reference(cost, w1, w2)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().nan_to_num(float("inf")).item()
+        row = (got.sum(-1) - w1).abs().max().item()
+        col = (got.sum(-2) - w2).abs().max().item()
+        errs[name] = err
+        ok = err <= SINKHORN_TOL
+        print(f"kernel vs plain sinkhorn {name} ({b},{n1},{n2}) iters 100: max|d|={err:.3e} "
+              f"tol={SINKHORN_TOL:g} {'ok' if ok else 'FAIL'}; kernel marginal error "
+              f"rows {row:.3e}, columns {col:.3e}")
+        if not ok:
+            _fail(f"sinkhorn_pallas disagrees with its plain version at {name}")
+    return errs
+
+
+def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
+    """Phases 6 and 7 for SUN-D; returns the Sinkhorn kernel's JSON entry."""
+    import torch
+
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.eval.emd_eval import evaluate_emd, sample_emd_episode_indices
+    from fewshot_vit_tpu_torch.heads import deepemd as _deepemd  # noqa: F401
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas, sinkhorn_reference
+
+    def head_for(dtype, solver):
+        return models.make("deepemd", encoder="visformer_micro_80",
+                           encoder_args={"use_pallas_attn": True}, solver=solver,
+                           dtype=dtype, device=dev, seed=0)
+
+    def run(head, n, mode="grid", shot=SHOT, indices=None, seed=1):
+        return evaluate_emd(head, ds, way=WAY, shot=shot, query=QUERY, n_episodes=n,
+                            ep_per_batch=SUND_EP_PER_BATCH, mode=mode, indices=indices,
+                            sfc_kw=SFC_KW, images_dev=images_dev, seed=seed, device=dev)
+
+    def counted(label, head, n, mode="grid", shot=SHOT):
+        n_batches = math.ceil(n / SUND_EP_PER_BATCH)
+        fused_mhsa.launches = sinkhorn_pallas.launches = 0
+        t0 = time.perf_counter()
+        acc, ci, accs = run(head, n, mode, shot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mhsa, sk = fused_mhsa.launches, sinkhorn_pallas.launches
+        print(f"SUN-D {label}: {n} episodes, acc={acc * 100:.2f} +- {ci * 100:.2f} %, "
+              f"sinkhorn_pallas launches={sk}, fused_mhsa launches={mhsa} "
+              f"({n_batches} batches), {wall:.2f} s")
+        if sk != n_batches or mhsa != 2 * n_batches:
+            _fail(f"SUN-D {label}: expected {n_batches} sinkhorn_pallas and "
+                  f"{2 * n_batches} fused_mhsa launches, counted {sk} and {mhsa}")
+        if accs.shape != (n,) or not ((accs >= 0) & (accs <= 1)).all():
+            _fail(f"SUN-D {label}: episode accuracies malformed: shape {accs.shape}")
+        return sk, wall
+
+    main_head = head_for(torch.bfloat16, "sinkhorn_pallas")
+    launches, _ = counted("1-shot grid bf16", main_head, SUND_EPISODES)
+
+    idx = sample_emd_episode_indices(ds, SUND_EPISODES, WAY, SHOT + QUERY, 2)
+    _, _, accs_k = run(head_for(torch.float32, "sinkhorn_pallas"), SUND_EPISODES, indices=idx)
+    _, _, accs_p = run(head_for(torch.float32, "sinkhorn_detached"), SUND_EPISODES, indices=idx)
+    differ = float((accs_k != accs_p).mean())
+    mean_d = float(abs(accs_k - accs_p).mean())
+    print(f"SUN-D fp32 (TF32 off) sinkhorn_pallas vs sinkhorn_detached: episodes "
+          f"differing={differ:.4f}, mean|dacc|={mean_d:.5f}, acc {accs_k.mean():.4f} vs "
+          f"{accs_p.mean():.4f}")
+    if differ > 0.01 or mean_d > 0.005:
+        _fail("SUN-D fp32 kernel path and plain path disagree")
+
+    counted("1-shot fcn bf16 (N = 25)", main_head, SUND_FCN_EPISODES, mode="fcn")
+    _, wall = counted("5-shot grid bf16 with SFC", main_head, SUND_EP_PER_BATCH, shot=5)
+    print(f"timing {tag}: SUN-D 5-shot grid with SFC ({SFC_KW['steps']} steps, inner "
+          f"flows on torch ops): {wall:.2f} s for one batch of {SUND_EP_PER_BATCH} episodes")
+
+    detached_head = head_for(torch.bfloat16, "sinkhorn_detached")
+    eps = {"sinkhorn_pallas": [], "sinkhorn_detached": []}
+    for solver in ("sinkhorn_pallas", "sinkhorn_detached", "sinkhorn_detached",
+                   "sinkhorn_pallas"):
+        head = main_head if solver == "sinkhorn_pallas" else detached_head
+        run(head, SUND_EP_PER_BATCH, seed=3)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(head, SUND_TIMED, seed=4)
+        eps[solver].append(SUND_TIMED / (time.perf_counter() - t0))
+    print(f"timing {tag}: SUN-D 1-shot grid bf16 episodes/s, sinkhorn_pallas: "
+          f"{eps['sinkhorn_pallas']}; sinkhorn_detached: {eps['sinkhorn_detached']} "
+          f"({SUND_TIMED} episodes at ep_per_batch {SUND_EP_PER_BATCH})")
+
+    b_main = SUND_EP_PER_BATCH * WAY * QUERY * WAY
+    entry = None
+    for name, n in (("grid", 13), ("fcn", 25)):
+        cost, w1, w2 = _ot_problem(b_main, n, n, gen, dev)
+        ms = _time_ms(lambda: sinkhorn_pallas(cost, w1, w2))
+        plain_ms = _time_ms(lambda: sinkhorn_reference(cost, w1, w2), reps=5, warm=1)
+        bound_ms, bound_by = _sinkhorn_bound(b_main, n, n, 100)
+        print(f"timing {tag}: sinkhorn_pallas {name} ({b_main},{n},{n}) iters 100: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"kernel/bound {ms / bound_ms:.2f}")
+        if name == "grid":  # the main path's shape
+            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(main_head, SUND_EP_PER_BATCH, seed=5)
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        with open(os.path.join(profile, "profile_sund_grid.txt"), "w") as f:
+            f.write(f"{card}\n{table}\n")
+        print("\n".join(table.splitlines()[:25]))
+    return {"name": "sinkhorn_pallas", "route": "cuda",
+            "source": "fewshot_vit_tpu_torch/csrc/sinkhorn.cu",
+            "replaces": "fewshot_vit_tpu/kernels/sinkhorn.py:71",
+            "launches": launches, **entry, "library_ms": None}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", default=None, help="write a profiler table here")
@@ -96,6 +271,7 @@ def main() -> int:
         fused_mhsa,
         fused_mhsa_reference,
     )
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
     from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -144,8 +320,9 @@ def main() -> int:
                 _fail(f"fused_mhsa disagrees with its plain version at {name} {dtype}")
             del qkv, q, k, v, out, got, want
     torch.cuda.synchronize()
+    sinkhorn_errs = _check_sinkhorn(gen, dev)
 
-    # phase 5: the main path
+    # phase 5: SUN-M
     t0 = time.perf_counter()
     ds = datasets.make("synthetic", n_classes=20, n_per_class=600, image_size=80, seed=0)
     images_dev = torch.from_numpy(ds.images).to(dev)
@@ -165,10 +342,12 @@ def main() -> int:
 
     main_head = head_for(torch.bfloat16, True)
     n_batches = math.ceil(N_EPISODES / EP_PER_BATCH)
-    fused_mhsa.launches = 0
+    fused_mhsa.launches = sinkhorn_pallas.launches = 0
     acc, ci, accs = run(main_head, N_EPISODES, seed=1)
     torch.cuda.synchronize()
     launches = fused_mhsa.launches
+    if sinkhorn_pallas.launches:
+        _fail("the SUN-M path launched the Sinkhorn kernel")
     print(f"main path bf16: {N_EPISODES} episodes, acc={acc * 100:.2f} +- {ci * 100:.2f} %, "
           f"fused_mhsa launches={launches} ({n_batches} batches)")
     if launches != 2 * n_batches:
@@ -187,7 +366,7 @@ def main() -> int:
     if differ > 0.01 or mean_d > 0.005:
         _fail("fp32 kernel path and plain path disagree")
 
-    # phase 6: timings
+    # phase 7, SUN-M: timings
     plain_head = head_for(torch.bfloat16, False)
     eps = {"fused": [], "plain": []}
     for which in ("fused", "plain", "plain", "fused"):
@@ -237,6 +416,11 @@ def main() -> int:
         with open(os.path.join(args.profile, "profile_main_path.txt"), "w") as f:
             f.write(f"{card}\n{table}\n")
         print("\n".join(table.splitlines()[:25]))
+    del main_head, plain_head, head
+    torch.cuda.empty_cache()
+
+    sinkhorn = _run_sund(dev, ds, images_dev, tag, gen, args.profile, card)
+    kernels.append({**sinkhorn, "max_abs_err": sinkhorn_errs["grid"]})
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

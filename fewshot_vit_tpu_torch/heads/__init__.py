@@ -1,5 +1,6 @@
 """Few-shot heads. Importing this package registers the heads."""
 
+from .deepemd import DeepEMD
 from .meta_baseline import MetaBaseline
 
-__all__ = ["MetaBaseline"]
+__all__ = ["DeepEMD", "MetaBaseline"]

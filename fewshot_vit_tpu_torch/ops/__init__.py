@@ -1,5 +1,13 @@
 from .episodes import make_nk_label, split_shot_query
-from .metric import compute_logits, l2_normalize, mean_confidence_interval, per_episode_acc
+from .emd import emd_distance, normalize_weights, sinkhorn
+from .metric import (
+    compute_logits,
+    l2_normalize,
+    mean_confidence_interval,
+    normal_confidence_interval,
+    per_episode_acc,
+)
 
-__all__ = ["compute_logits", "l2_normalize", "make_nk_label",
-           "mean_confidence_interval", "per_episode_acc", "split_shot_query"]
+__all__ = ["compute_logits", "emd_distance", "l2_normalize", "make_nk_label",
+           "mean_confidence_interval", "normal_confidence_interval",
+           "normalize_weights", "per_episode_acc", "sinkhorn", "split_shot_query"]

@@ -61,3 +61,13 @@ def mean_confidence_interval(accs, confidence: float = 0.95):
     se = float(stats.sem(a))
     h = se * float(stats.t.ppf((1 + confidence) / 2.0, n - 1))
     return m, h
+
+
+def normal_confidence_interval(accs):
+    """(mean, halfwidth) with the SUN-D formula ``1.96 * std / sqrt(n)``,
+    population std (ddof 0), as the SUN-D eval reports it; not the Student-t
+    interval of ``mean_confidence_interval``. Host side."""
+    a = np.asarray(accs, dtype=np.float64).reshape(-1)
+    m = float(np.mean(a))
+    pm = 1.96 * float(np.std(a)) / np.sqrt(a.shape[0])
+    return m, pm

@@ -10,8 +10,8 @@ import torch
 
 from fewshot_vit_tpu_torch.core.registry import models
 from fewshot_vit_tpu_torch.data.datasets import synthetic
-from fewshot_vit_tpu_torch.eval import episodic, run
-from fewshot_vit_tpu_torch.heads import meta_baseline  # noqa: F401  (registers the heads)
+from fewshot_vit_tpu_torch.eval import emd_eval, episodic, run, run_emd
+from fewshot_vit_tpu_torch.heads import deepemd, meta_baseline  # noqa: F401  (registers the heads)
 from fewshot_vit_tpu_torch.models.visformer import Visformer
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -32,7 +32,8 @@ def _imported_modules(path):
 
 def test_scan_covers_the_port():
     names = {p.name for p in _port_files()}
-    assert {"chip_smoke.py", "visformer.py", "attention.py", "episodic.py"} <= names
+    assert {"chip_smoke.py", "visformer.py", "attention.py", "episodic.py", "sinkhorn.py",
+            "deepemd.py", "patches.py", "emd_eval.py", "run_emd.py", "meta_tune_emd.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -62,6 +63,13 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     cfg.write_text("dataset: synthetic\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--config", str(cfg)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        models.make("deepemd", encoder="visformer_micro_80")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        emd_eval.evaluate_emd(deepemd.DeepEMD(enc), ds, n_episodes=1, way=2, query=1)
+    cfg.write_text("val_dataset: synthetic\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_emd.main(["--config", str(cfg)])
 
 
 def test_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys):
@@ -79,10 +87,30 @@ def test_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys):
         run.main(["--config", str(cfg), "--device", "cpu"])
 
 
+@pytest.mark.parametrize("mode", ["grid", "fcn"])
+def test_sund_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys, mode):
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(
+        "val_dataset: synthetic\n"
+        "val_dataset_args: {n_classes: 5, n_per_class: 4, image_size: 80}\n"
+        f"deepemd: {mode}\n"
+        "way: 3\nquery: 1\nsolver: sinkhorn_pallas\nsolver_iters: 20\n"
+        "model_args: {encoder: visformer_micro_80,\n"
+        "             encoder_args: {use_pallas_attn: true, init_channels: 16,\n"
+        "                            embed_dim: 96, depth: [1, 1, 1]}}\n")
+    run_emd.main(["--config", str(cfg), "--episodes", "2", "--ep-per-batch", "2",
+                  "--device", "cpu"])
+    assert f"3-way 1-shot ({mode}): acc=" in capsys.readouterr().out
+    cfg.write_text("val_dataset: synthetic\nload_encoder: ./save/sun_mini-imagenet/max-va\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_emd.main(["--config", str(cfg), "--device", "cpu"])
+
+
 def test_entry_points_default_to_cuda():
     import inspect
 
     for fn in (episodic.evaluate, episodic.encode_dataset, episodic.evaluate_cached,
-               meta_baseline.make_meta_baseline):
+               meta_baseline.make_meta_baseline, deepemd.make_deepemd,
+               emd_eval.evaluate_emd):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert inspect.signature(Visformer).parameters["device"].default == "cuda"
