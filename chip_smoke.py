@@ -6,23 +6,29 @@ Phases, in order; any failure exits non-zero:
   2. print the card's name and power limit (nvidia-smi);
   3. build every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
      all started together) and load it;
-  4. hold each kernel against its plain PyTorch version on the card: fused
-     MHSA in fp32 and bf16 at the SUN-M shape and at a short and a long case;
-     Sinkhorn in fp32 at the SUN-D grid and fcn shapes, a ragged case and the
-     kernel's N limit, with the output pre-filled with NaN;
+  4. hold each kernel against its plain PyTorch version on the card, every
+     output pre-filled with NaN and every route asserted: fused MHSA in fp32
+     and bf16 at the SUN-M shape and at a short and a long case, more bf16
+     shapes through the tensor-core route, and a neighbour check (only heads
+     0, 2, 4 computed: heads 1, 3, 5 must stay NaN); Sinkhorn in fp32 at the
+     SUN-D grid and fcn shapes, a ragged case, the kernel's N limit, the
+     packed route's edges (odd batch, N = 16, 17, 32, 33) and 0 and 1
+     iterations;
   5. SUN-M: 5-way 1-shot 15-query episodic eval, MetaBaseline over
      visformer_micro_80 at full width and depth, seeded weights, BN folded,
      bf16, fused attention on, on the synthetic 20 x 600 dataset resident on
-     the card; the MHSA launch count must be 2 per episode batch. Then the
-     same episodes in fp32 (TF32 off), fused-kernel path against
-     plain-attention path;
+     the card; the MHSA launch count must be 2 per episode batch, all on the
+     tensor-core route. Then the same episodes in fp32 (TF32 off) and in
+     bf16, fused-kernel path against plain-attention path;
   6. SUN-D: DeepEMD over the same encoder (BN unfolded, as the JAX SUN-D eval
      runs it), ``solver: sinkhorn_pallas``, bf16 encoder, fp32 EMD: 1-shot
-     grid (1 Sinkhorn and 2 MHSA launches per episode batch), then fp32 with
+     grid (1 Sinkhorn launch on the packed route and 2 MHSA launches on the
+     tensor-core route per episode batch), then fp32 with
      the kernel against ``sinkhorn_detached`` on the same episodes; 1-shot
      fcn (N = 25); one batch of 5-shot grid with SFC;
-  7. time both paths (episodes/s, the kernel against its alternative in
-     turns) and each kernel, its plain version and, for MHSA,
+  7. time both paths (episodes/s in turns: the default routes, the old
+     routes forced, the kernel's alternative) and each kernel in turns (old
+     route, new route), its plain version and, for MHSA,
      ``scaled_dot_product_attention`` (a yardstick only) beside the bound;
   8. print the kernels' JSON line, then the result line.
 
@@ -62,6 +68,14 @@ SINKHORN_TOL = 1e-4
 
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _zero_counts(*wrappers) -> None:
+    """Set every launch count of the kernels' wrappers to 0, per route too."""
+    for w in wrappers:
+        w.launches = 0
+        for route in w.route_launches:
+            w.route_launches[route] = 0
 
 
 def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -118,6 +132,74 @@ def _ot_problem(b, n1, n2, gen, dev):
     return cost, w1, w2
 
 
+def _check_mhsa(gen, dev, b_main):
+    """Phase 4, fused MHSA: kernel vs plain version, every case through heads
+    split out of a packed qkv tensor and an output written through a
+    (B, T, H, hd) view, as attention_core hands them over; the output starts
+    as NaN so an unwritten element cannot pass. Returns max|d| per case."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa, fused_mhsa_reference
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("stage2", b_main, 6, 100, 42, (f32, bf16)), ("short", b_main, 6, 25, 85, (f32, bf16)),
+             ("long", 64, 4, 512, 128, (f32, bf16)),
+             # bf16 only: the tensor-core route's edges
+             ("one token", 3, 1, 1, 1, (bf16,)), ("odd", 2, 3, 33, 97, (bf16,)),
+             ("t64 hd48", 32, 4, 64, 48, (bf16,)), ("limit", 4, 2, 128, 128, (bf16,)),
+             ("beyond", 4, 2, 129, 64, (bf16,))]
+    errs = {}
+    for name, b, h, t, hd, dtypes in cases:
+        for dtype in dtypes:
+            route = "tensor_core" if dtype == bf16 and t <= 128 else "general"
+            qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
+            q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+            out = torch.full((b, t, h, hd), float("nan"), dtype=dtype, device=dev)
+            before = dict(fused_mhsa.route_launches)
+            got = fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2))
+            want = fused_mhsa_reference(q, k, v, hd ** -0.5)
+            torch.cuda.synchronize()
+            if fused_mhsa.route_launches[route] != before[route] + 1:
+                _fail(f"fused_mhsa {name} {dtype}: expected one launch on the {route} route, "
+                      f"counts went {before} -> {fused_mhsa.route_launches}")
+            err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+            errs[(name, str(dtype))] = err
+            ok = err <= TOL[str(dtype)]
+            print(f"kernel vs plain {name} ({b},{h},{t},{hd}) {dtype}: "
+                  f"max|d|={err:.3e} tol={TOL[str(dtype)]:g} {'ok' if ok else 'FAIL'}; "
+                  f"{route} route")
+            if not ok:
+                _fail(f"fused_mhsa disagrees with its plain version at {name} {dtype}")
+            if route == "tensor_core":  # the general route on the same inputs
+                out.fill_(float("nan"))
+                got = fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2), route="general")
+                err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+                if not err <= TOL[str(dtype)]:
+                    _fail(f"fused_mhsa (general route forced) disagrees at {name}: {err:.3e}")
+            del qkv, q, k, v, out, got, want
+
+    # neighbour check at the stage-2 shape: only heads 0, 2, 4 are computed,
+    # through views; the columns of heads 1, 3, 5 lie between theirs in every
+    # token row of the output and must still be NaN
+    b, h, t, hd = b_main, 6, 100, 42
+    qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(bf16)
+    q, k, v = (x.transpose(1, 2)[:, ::2] for x in qkv.unbind(2))
+    out = torch.full((b, t, h, hd), float("nan"), dtype=bf16, device=dev)
+    before = fused_mhsa.route_launches["tensor_core"]
+    got = fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2)[:, ::2])
+    want = fused_mhsa_reference(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+    untouched = bool(out[:, :, 1::2].isnan().all())
+    print(f"neighbour check ({b},{h},{t},{hd}) bf16, heads 0, 2, 4 computed: max|d|={err:.3e}, "
+          f"heads 1, 3, 5 still NaN: {untouched}")
+    if fused_mhsa.route_launches["tensor_core"] != before + 1:
+        _fail("the neighbour check did not take the tensor-core route")
+    if not err <= TOL[str(bf16)] or not untouched:
+        _fail("fused_mhsa wrote outside the heads it was given, or disagrees on them")
+    return errs
+
+
 def _check_sinkhorn(gen, dev):
     """Phase 4, Sinkhorn: kernel vs plain version; returns max|d| per case."""
     import torch
@@ -130,22 +212,38 @@ def _check_sinkhorn(gen, dev):
 
     b_main = SUND_EP_PER_BATCH * WAY * QUERY * WAY  # (query, prototype) pairs per batch
     errs = {}
-    for name, (b, n1, n2) in (("grid", (b_main, 13, 13)), ("fcn", (b_main, 25, 25)),
-                              ("ragged", (5, 9, 13)), ("limit", (64, MAX_NODES, MAX_NODES))):
+    cases = (("grid", (b_main, 13, 13), 100), ("fcn", (b_main, 25, 25), 100),
+             ("ragged", (5, 9, 13), 100), ("limit", (64, MAX_NODES, MAX_NODES), 100),
+             ("sfc inner", (160, 13, 13), 100), ("odd batch", (b_main + 1, 13, 13), 100),
+             ("half-warp full", (5, 16, 16), 100), ("mixed", (5, 17, 9), 100),
+             ("warp full", (5, 32, 32), 100), ("beyond packed", (5, 33, 33), 100),
+             ("no rounds", (7, 13, 13), 0), ("one round", (7, 25, 13), 1))
+    for name, (b, n1, n2), iters in cases:
         cost, w1, w2 = _ot_problem(b, n1, n2, gen, dev)
-        got = sinkhorn_pallas(cost, w1, w2, out=torch.full_like(cost, float("nan")))
-        want = sinkhorn_reference(cost, w1, w2)
+        route = "packed" if max(n1, n2) <= 32 else "general"
+        before = dict(sinkhorn_pallas.route_launches)
+        got = sinkhorn_pallas(cost, w1, w2, iters=iters, out=torch.full_like(cost, float("nan")))
+        want = sinkhorn_reference(cost, w1, w2, iters=iters)
         torch.cuda.synchronize()
+        if sinkhorn_pallas.route_launches[route] != before[route] + 1:
+            _fail(f"sinkhorn_pallas {name}: expected one launch on the {route} route, "
+                  f"counts went {before} -> {sinkhorn_pallas.route_launches}")
         err = (got - want).abs().max().nan_to_num(float("inf")).item()
         row = (got.sum(-1) - w1).abs().max().item()
         col = (got.sum(-2) - w2).abs().max().item()
         errs[name] = err
         ok = err <= SINKHORN_TOL
-        print(f"kernel vs plain sinkhorn {name} ({b},{n1},{n2}) iters 100: max|d|={err:.3e} "
+        print(f"kernel vs plain sinkhorn {name} ({b},{n1},{n2}) iters {iters}: max|d|={err:.3e} "
               f"tol={SINKHORN_TOL:g} {'ok' if ok else 'FAIL'}; kernel marginal error "
-              f"rows {row:.3e}, columns {col:.3e}")
+              f"rows {row:.3e}, columns {col:.3e}; {route} route")
         if not ok:
             _fail(f"sinkhorn_pallas disagrees with its plain version at {name}")
+        if route == "packed":  # the general route on the same problem
+            got = sinkhorn_pallas(cost, w1, w2, iters=iters, route="general",
+                                  out=torch.full_like(cost, float("nan")))
+            err = (got - want).abs().max().nan_to_num(float("inf")).item()
+            if not err <= SINKHORN_TOL:
+                _fail(f"sinkhorn_pallas (general route forced) disagrees at {name}: {err:.3e}")
     return errs
 
 
@@ -156,6 +254,8 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
     from fewshot_vit_tpu_torch.core.registry import models
     from fewshot_vit_tpu_torch.eval.emd_eval import evaluate_emd, sample_emd_episode_indices
     from fewshot_vit_tpu_torch.heads import deepemd as _deepemd  # noqa: F401
+    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
+    from fewshot_vit_tpu_torch.kernels import sinkhorn as sinkhorn_mod
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
     from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas, sinkhorn_reference
 
@@ -171,24 +271,30 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
 
     def counted(label, head, n, mode="grid", shot=SHOT):
         n_batches = math.ceil(n / SUND_EP_PER_BATCH)
-        fused_mhsa.launches = sinkhorn_pallas.launches = 0
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
         t0 = time.perf_counter()
         acc, ci, accs = run(head, n, mode, shot)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         mhsa, sk = fused_mhsa.launches, sinkhorn_pallas.launches
+        routes = {"fused_mhsa": dict(fused_mhsa.route_launches),
+                  "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
         print(f"SUN-D {label}: {n} episodes, acc={acc * 100:.2f} +- {ci * 100:.2f} %, "
               f"sinkhorn_pallas launches={sk}, fused_mhsa launches={mhsa} "
-              f"({n_batches} batches), {wall:.2f} s")
+              f"({n_batches} batches), by route {routes}, {wall:.2f} s")
         if sk != n_batches or mhsa != 2 * n_batches:
             _fail(f"SUN-D {label}: expected {n_batches} sinkhorn_pallas and "
                   f"{2 * n_batches} fused_mhsa launches, counted {sk} and {mhsa}")
+        if routes != {"fused_mhsa": {"general": 0, "tensor_core": mhsa},
+                      "sinkhorn_pallas": {"general": 0, "packed": sk}}:
+            _fail(f"SUN-D {label}: launches left the tensor-core and packed routes: {routes}")
         if accs.shape != (n,) or not ((accs >= 0) & (accs <= 1)).all():
             _fail(f"SUN-D {label}: episode accuracies malformed: shape {accs.shape}")
         return sk, wall
 
     main_head = head_for(torch.bfloat16, "sinkhorn_pallas")
     launches, _ = counted("1-shot grid bf16", main_head, SUND_EPISODES)
+    route_launches = dict(sinkhorn_pallas.route_launches)
 
     idx = sample_emd_episode_indices(ds, SUND_EPISODES, WAY, SHOT + QUERY, 2)
     _, _, accs_k = run(head_for(torch.float32, "sinkhorn_pallas"), SUND_EPISODES, indices=idx)
@@ -207,46 +313,60 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
           f"flows on torch ops): {wall:.2f} s for one batch of {SUND_EP_PER_BATCH} episodes")
 
     detached_head = head_for(torch.bfloat16, "sinkhorn_detached")
-    eps = {"sinkhorn_pallas": [], "sinkhorn_detached": []}
-    for solver in ("sinkhorn_pallas", "sinkhorn_detached", "sinkhorn_detached",
-                   "sinkhorn_pallas"):
-        head = main_head if solver == "sinkhorn_pallas" else detached_head
-        run(head, SUND_EP_PER_BATCH, seed=3)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(head, SUND_TIMED, seed=4)
-        eps[solver].append(SUND_TIMED / (time.perf_counter() - t0))
+    eps = {"sinkhorn_pallas": [], "old routes": [], "sinkhorn_detached": []}
+    for solver in ("sinkhorn_pallas", "old routes", "sinkhorn_detached", "sinkhorn_detached",
+                   "old routes", "sinkhorn_pallas"):
+        head = detached_head if solver == "sinkhorn_detached" else main_head
+        old = "general" if solver == "old routes" else None
+        with mhsa_mod.force_route(old), sinkhorn_mod.force_route(old):
+            run(head, SUND_EP_PER_BATCH, seed=3)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(head, SUND_TIMED, seed=4)
+            eps[solver].append(SUND_TIMED / (time.perf_counter() - t0))
     print(f"timing {tag}: SUN-D 1-shot grid bf16 episodes/s, sinkhorn_pallas: "
-          f"{eps['sinkhorn_pallas']}; sinkhorn_detached: {eps['sinkhorn_detached']} "
+          f"{eps['sinkhorn_pallas']}; sinkhorn_detached: {eps['sinkhorn_detached']}; "
+          f"sinkhorn_pallas with both kernels' general routes forced: {eps['old routes']} "
           f"({SUND_TIMED} episodes at ep_per_batch {SUND_EP_PER_BATCH})")
 
     b_main = SUND_EP_PER_BATCH * WAY * QUERY * WAY
+    b_sfc = SUND_EP_PER_BATCH * SFC_KW["batch_size"] * WAY  # SFC's inner call at 5-shot
     entry = None
-    for name, n in (("grid", 13), ("fcn", 25)):
-        cost, w1, w2 = _ot_problem(b_main, n, n, gen, dev)
-        ms = _time_ms(lambda: sinkhorn_pallas(cost, w1, w2))
+    for name, b, n in (("grid", b_main, 13), ("fcn", b_main, 25), ("sfc inner", b_sfc, 13)):
+        cost, w1, w2 = _ot_problem(b, n, n, gen, dev)
+        route = sinkhorn_mod.sinkhorn_route(n, n)
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            with sinkhorn_mod.force_route("general" if which == "old" else None):
+                times[which].append(_time_ms(lambda: sinkhorn_pallas(cost, w1, w2)))
+        ms, prev_ms = sum(times["new"]) / 2, sum(times["old"]) / 2
         plain_ms = _time_ms(lambda: sinkhorn_reference(cost, w1, w2), reps=5, warm=1)
-        bound_ms, bound_by = _sinkhorn_bound(b_main, n, n, 100)
-        print(f"timing {tag}: sinkhorn_pallas {name} ({b_main},{n},{n}) iters 100: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        bound_ms, bound_by = _sinkhorn_bound(b, n, n, 100)
+        print(f"timing {tag}: sinkhorn_pallas {name} ({b},{n},{n}) iters 100: kernel "
+              f"{ms:.4f} ms ({route} route; {times['new']}), general route {prev_ms:.4f} ms "
+              f"({times['old']}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
               f"kernel/bound {ms / bound_ms:.2f}")
         if name == "grid":  # the main path's shape
-            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+            entry = {"kernel_route": route, "ms": ms, "prev_ms": prev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        if name != "sfc inner" and not ms < prev_ms:
+            _fail(f"the packed sinkhorn_pallas ({ms:.4f} ms) is not faster than the general "
+                  f"route ({prev_ms:.4f} ms) at {name}")
 
     if profile:
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run(main_head, SUND_EP_PER_BATCH, seed=5)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
         with open(os.path.join(profile, "profile_sund_grid.txt"), "w") as f:
             f.write(f"{card}\n{table}\n")
         print("\n".join(table.splitlines()[:25]))
     return {"name": "sinkhorn_pallas", "route": "cuda",
             "source": "fewshot_vit_tpu_torch/csrc/sinkhorn.cu",
             "replaces": "fewshot_vit_tpu/kernels/sinkhorn.py:71",
-            "launches": launches, **entry, "library_ms": None}
+            "launches": launches, "route_launches": route_launches, **entry,
+            "library_ms": None}
 
 
 def main() -> int:
@@ -266,6 +386,7 @@ def main() -> int:
     from fewshot_vit_tpu_torch.eval.episodic import evaluate, sample_episode_indices
     from fewshot_vit_tpu_torch.heads import meta_baseline as _heads  # noqa: F401
     from fewshot_vit_tpu_torch.kernels import build
+    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
     from fewshot_vit_tpu_torch.kernels.attention import (
         attention_core,
         fused_mhsa,
@@ -290,36 +411,13 @@ def main() -> int:
     logs = build.build()
     print(f"build: {sorted(logs) or 'up to date'} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in build.ptxas_summary(log):
+            print(f"  ptxas {name}: {line}")
 
-    # phase 4: kernel vs plain version, shapes of the main path and two more
+    # phase 4: kernel vs plain version
     b_main = EP_PER_BATCH * WAY * (SHOT + QUERY)
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {}
-    cases = [("stage2", b_main, 6, 100, 42), ("short", b_main, 6, 25, 85),
-             ("long", 64, 4, 512, 128)]
-    for name, b, h, t, hd in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            # heads split out of a packed qkv tensor and the output written
-            # through a (B, T, H, hd) view, as attention_core hands them over;
-            # the output starts as NaN so an unwritten element cannot pass
-            qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
-            q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
-            out = torch.full((b, t, h, hd), float("nan"), dtype=dtype, device=dev)
-            got = fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2))
-            want = fused_mhsa_reference(q, k, v, hd ** -0.5)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
-            errs[(name, str(dtype))] = err
-            ok = err <= TOL[str(dtype)]
-            print(f"kernel vs plain {name} ({b},{h},{t},{hd}) {dtype}: "
-                  f"max|d|={err:.3e} tol={TOL[str(dtype)]:g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                _fail(f"fused_mhsa disagrees with its plain version at {name} {dtype}")
-            del qkv, q, k, v, out, got, want
-    torch.cuda.synchronize()
+    errs = _check_mhsa(gen, dev, b_main)
     sinkhorn_errs = _check_sinkhorn(gen, dev)
 
     # phase 5: SUN-M
@@ -342,16 +440,18 @@ def main() -> int:
 
     main_head = head_for(torch.bfloat16, True)
     n_batches = math.ceil(N_EPISODES / EP_PER_BATCH)
-    fused_mhsa.launches = sinkhorn_pallas.launches = 0
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
     acc, ci, accs = run(main_head, N_EPISODES, seed=1)
     torch.cuda.synchronize()
-    launches = fused_mhsa.launches
+    launches, routes = fused_mhsa.launches, dict(fused_mhsa.route_launches)
     if sinkhorn_pallas.launches:
         _fail("the SUN-M path launched the Sinkhorn kernel")
     print(f"main path bf16: {N_EPISODES} episodes, acc={acc * 100:.2f} +- {ci * 100:.2f} %, "
-          f"fused_mhsa launches={launches} ({n_batches} batches)")
+          f"fused_mhsa launches={launches} ({n_batches} batches), by route {routes}")
     if launches != 2 * n_batches:
         _fail(f"expected {2 * n_batches} fused_mhsa launches, counted {launches}")
+    if routes != {"general": 0, "tensor_core": launches}:
+        _fail(f"the main path's fused_mhsa launches left the tensor-core route: {routes}")
     if accs.shape != (N_EPISODES,) or not ((accs >= 0) & (accs <= 1)).all():
         _fail(f"episode accuracies malformed: shape {accs.shape}")
 
@@ -366,17 +466,43 @@ def main() -> int:
     if differ > 0.01 or mean_d > 0.005:
         _fail("fp32 kernel path and plain path disagree")
 
-    # phase 7, SUN-M: timings
+    # bf16, same episodes, three paths: tensor-core route, general route,
+    # plain attention. In bf16 any two of them round differently, and a
+    # borderline query flips in a few percent of the episodes whichever pair
+    # is taken (the general route against the plain path too), so the share
+    # of differing episodes is held to what that older pair shows plus 1%,
+    # and the mean accuracy difference to the fp32 check's 0.005.
     plain_head = head_for(torch.bfloat16, False)
-    eps = {"fused": [], "plain": []}
-    for which in ("fused", "plain", "plain", "fused"):
-        head = main_head if which == "fused" else plain_head
-        run(head, EP_PER_BATCH, seed=3)  # warm this head's shapes
-        t0 = time.perf_counter()
-        run(head, N_TIMED, seed=2)
-        eps[which].append(N_TIMED / (time.perf_counter() - t0))
+    _, _, accs_k = run(main_head, N_EPISODES, indices=idx)
+    with mhsa_mod.force_route("general"):
+        _, _, accs_o = run(main_head, N_EPISODES, indices=idx)
+    _, _, accs_p = run(plain_head, N_EPISODES, indices=idx)
+    pairs = {}
+    for label, a, b in (("tensor-core vs general route", accs_k, accs_o),
+                        ("tensor-core route vs plain path", accs_k, accs_p),
+                        ("general route vs plain path", accs_o, accs_p)):
+        pairs[label] = (float((a != b).mean()), float(abs(a - b).mean()))
+        print(f"bf16 {label}: episodes differing={pairs[label][0]:.4f}, "
+              f"mean|dacc|={pairs[label][1]:.5f}, acc {a.mean():.4f} vs {b.mean():.4f}")
+    allowed = pairs["general route vs plain path"][0] + 0.01
+    for label in ("tensor-core vs general route", "tensor-core route vs plain path"):
+        differ, mean_d = pairs[label]
+        if differ > allowed or mean_d > 0.005:
+            _fail(f"bf16 {label}: {differ:.4f} of the episodes differ (allowed {allowed:.4f}), "
+                  f"mean|dacc| {mean_d:.5f} (allowed 0.005)")
+
+    # phase 7, SUN-M: timings, in turns; "old" forces the general route
+    eps = {"fused": [], "old": [], "plain": []}
+    for which in ("fused", "old", "plain", "plain", "old", "fused"):
+        head = plain_head if which == "plain" else main_head
+        with mhsa_mod.force_route("general" if which == "old" else None):
+            run(head, EP_PER_BATCH, seed=3)  # warm this head's shapes
+            t0 = time.perf_counter()
+            run(head, N_TIMED, seed=2)
+            eps[which].append(N_TIMED / (time.perf_counter() - t0))
     print(f"timing {tag}: main path bf16 episodes/s, fused-kernel attention: "
-          f"{eps['fused']}; plain attention: {eps['plain']} "
+          f"{eps['fused']}; plain attention: {eps['plain']}; fused-kernel attention with the "
+          f"general route forced: {eps['old']} "
           f"({N_TIMED} episodes at ep_per_batch {EP_PER_BATCH})")
 
     kernels = []
@@ -386,22 +512,34 @@ def main() -> int:
         q, k, v = qkv.unbind(2)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         scale = hd ** -0.5
-        ms = _time_ms(lambda: attention_core(q, k, v, scale))
+        route = mhsa_mod.mhsa_route(qt)
+        times = {"old": [], "new": [], "sdpa": []}
+        for which in ("old", "new", "sdpa", "sdpa", "new", "old"):
+            if which == "sdpa":
+                times[which].append(_time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, scale=scale)))
+            else:
+                with mhsa_mod.force_route("general" if which == "old" else None):
+                    times[which].append(_time_ms(lambda: attention_core(q, k, v, scale)))
+        ms, prev_ms, lib_ms = (sum(times[w]) / 2 for w in ("new", "old", "sdpa"))
         plain_ms = _time_ms(lambda: fused_mhsa_reference(qt, kt, vt, scale))
-        lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, scale=scale))
         bound_ms, bound_by = _bound(b, h, t, hd, dtype)
-        print(f"timing {tag}: fused_mhsa ({b},{h},{t},{hd}) {dtype}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}); kernel/bound {ms / bound_ms:.2f}")
+        print(f"timing {tag}: fused_mhsa ({b},{h},{t},{hd}) {dtype}: kernel {ms:.4f} ms "
+              f"({route} route; {times['new']}), general route {prev_ms:.4f} ms ({times['old']}), "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({times['sdpa']}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}); kernel/bound {ms / bound_ms:.2f}")
         if dtype == torch.bfloat16:  # the main path's dtype
+            if not (ms < lib_ms and ms < prev_ms):
+                _fail(f"the tensor-core fused_mhsa ({ms:.3f} ms) is not faster than sdpa "
+                      f"({lib_ms:.3f} ms) and the general route ({prev_ms:.3f} ms)")
             kernels.append({
                 "name": "fused_mhsa", "route": "cuda",
                 "source": "fewshot_vit_tpu_torch/csrc/mhsa.cu",
                 "replaces": "fewshot_vit_tpu/kernels/attention.py:54",
-                "launches": launches,
+                "launches": launches, "kernel_route": route, "route_launches": routes,
                 "max_abs_err": errs[("stage2", str(dtype))],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "ms": ms, "prev_ms": prev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms,
             })
         del qkv, q, k, v, qt, kt, vt
@@ -412,7 +550,7 @@ def main() -> int:
         os.makedirs(args.profile, exist_ok=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run(main_head, EP_PER_BATCH, seed=4)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
         with open(os.path.join(args.profile, "profile_main_path.txt"), "w") as f:
             f.write(f"{card}\n{table}\n")
         print("\n".join(table.splitlines()[:25]))

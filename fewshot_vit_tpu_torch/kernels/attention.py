@@ -1,15 +1,23 @@
 """Fused multi-head self-attention for short token axes
 (counterpart: ``fewshot_vit_tpu/kernels/attention.py``).
 
-``fused_mhsa`` on CUDA tensors launches the hand-written kernel in
+``fused_mhsa`` on CUDA tensors launches a hand-written kernel of
 ``csrc/mhsa.cu`` (sm_90a), which replaces the Pallas TPU kernel
 ``_mhsa_kernel``. On CPU tensors it computes ``fused_mhsa_reference``, the
 plain PyTorch version of the same function: that path exists for the CPU
-tests; on the card the kernel runs or the call raises.
+tests; on the card a kernel runs or the call raises.
+
+The source holds two routes, and ``mhsa_route`` picks one from dtype and
+shape alone: ``tensor_core`` (bf16, T <= 128, hd <= 128: ``mma.sync`` products,
+scores in registers) and ``general`` (fp32, or bf16 with longer token axes:
+fp32 FMAs on the CUDA cores). ``fused_mhsa(..., route="general")`` or the
+``force_route("general")`` context forces the general route, for timing one
+against the other. Launches are counted in all and per route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -18,7 +26,10 @@ import torch
 
 MAX_TOKENS = 512
 MAX_HEAD_DIM = 128
+TC_MAX_TOKENS = 128   # the tensor-core route keeps a whole score row in registers
+ROUTES = ("general", "tensor_core")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_forced_route: Optional[str] = None
 
 
 def fused_mhsa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,6 +50,7 @@ def _mhsa_forward():
     fn = library("mhsa").mhsa_forward
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int,                      # dtype code, device
+        ctypes.c_int, ctypes.c_int,                      # route, 4-byte accesses
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_longlong),               # 12 strides
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -69,15 +81,64 @@ def _check(q, k, v, out) -> None:
             raise ValueError(f"{name}'s last dim must be contiguous, strides {x.stride()}")
 
 
+def mhsa_route(q: torch.Tensor) -> str:
+    """The route ``fused_mhsa`` takes for q (and k, v of its dtype and shape)
+    when none is forced: a pure function of dtype and shape."""
+    t, hd = q.shape[-2:]
+    if q.dtype == torch.bfloat16 and t <= TC_MAX_TOKENS and hd <= MAX_HEAD_DIM:
+        return "tensor_core"
+    return "general"
+
+
+def mhsa_vectorized(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor) -> bool:
+    """Whether the tensor-core route may move bf16 pairs (4-byte ``cp.async``
+    and stores): every pointer 4-byte aligned, every (batch, head, token)
+    stride even and hd even. Otherwise it moves single elements."""
+    if q.shape[-1] % 2:
+        return False
+    return all(x.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in x.stride()[:3])
+               for x in (q, k, v, out))
+
+
+@contextlib.contextmanager
+def force_route(route: Optional[str]):
+    """Within the context every ``fused_mhsa`` call without a ``route``
+    argument takes this route (``None``: the default choice)."""
+    global _forced_route
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    previous, _forced_route = _forced_route, route
+    try:
+        yield
+    finally:
+        _forced_route = previous
+
+
+def _resolve_route(q: torch.Tensor, route: Optional[str]) -> str:
+    route = route or _forced_route
+    default = mhsa_route(q)
+    if route is None:
+        return default
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "tensor_core" and default != "tensor_core":
+        raise ValueError(f"the tensor-core route takes bfloat16 with T <= {TC_MAX_TOKENS} "
+                         f"and hd <= {MAX_HEAD_DIM}, got {q.dtype} {tuple(q.shape)}")
+    return route
+
+
 def fused_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None,
+               route: Optional[str] = None) -> torch.Tensor:
     """q, k, v (B, H, T, hd) -> (B, H, T, hd) = softmax(q k^T * scale) v.
 
     The inputs may be strided views (e.g. heads split out of a packed qkv
     projection) as long as the last dim is contiguous. ``out``, if given,
     is written in place (any view of that shape with a contiguous last dim).
-    CPU tensors take the plain version; CUDA tensors launch the kernel and
-    add one to ``fused_mhsa.launches``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``route`` (default: ``mhsa_route``) and add one to ``fused_mhsa.launches``
+    and to ``fused_mhsa.route_launches[route]``.
     """
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -87,20 +148,24 @@ def fused_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         raise ValueError(f"fused_mhsa runs on CPU or CUDA tensors, not {q.device}")
     _check(q, k, v, out)
     b, h, t, hd = q.shape
+    route = _resolve_route(q, route)
+    vec = route == "tensor_core" and mhsa_vectorized(q, k, v, out)
     strides = (ctypes.c_longlong * 12)(
         *(s for x in (q, k, v, out) for s in x.stride()[:3]))
     err = _mhsa_forward()(
-        _DTYPE_CODE[q.dtype], q.device.index,
+        _DTYPE_CODE[q.dtype], q.device.index, ROUTES.index(route), int(vec),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         b, h, t, hd, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"mhsa kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"mhsa kernel launch failed ({route} route): cudaError {err}")
     fused_mhsa.launches += 1
+    fused_mhsa.route_launches[route] += 1
     return out
 
 
 fused_mhsa.launches = 0
+fused_mhsa.route_launches = {route: 0 for route in ROUTES}
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

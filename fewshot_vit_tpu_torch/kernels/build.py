@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -85,3 +86,34 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def _kernel_name(symbol: str) -> str:
+    """``mhsa_tc_kernel<7,3>`` out of the mangled name that ptxas prints."""
+    for m in re.finditer(r"\d+", symbol):
+        n = int(m.group())
+        name = symbol[m.end():m.end() + n]
+        if len(name) == n and name.endswith("_kernel"):
+            rest = symbol[m.end() + n:]
+            if not rest.startswith("I") or "Ev" not in rest:
+                return name
+            args = re.findall(r"Li(\d+)E|\d+(__nv_bfloat16)|(f)", rest[1:rest.index("Ev")])
+            names = [i or bf16 or "float" for i, bf16, _ in args]
+            return f"{name}<{','.join(names)}>"
+    return symbol
+
+
+def ptxas_summary(log: str) -> List[str]:
+    """One line per kernel of a build's ``-Xptxas -v`` output: its name
+    beside registers, barriers, static shared memory and any spills."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line or "Compiling entry function" in line:
+            found = re.search(r"'?(_Z\w+)'?", line)
+            name = _kernel_name(found.group(1)) if found else line.split()[-1]
+            spill = ""
+        elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            spill = "; " + line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}{spill}")
+    return out

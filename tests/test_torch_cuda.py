@@ -31,17 +31,85 @@ def _qkv(shape, seed, device, dtype):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(64, 6, 100, 42), (32, 6, 25, 85), (4, 2, 512, 128),
-                                   (3, 1, 1, 1), (2, 3, 33, 97)])
+                                   (3, 1, 1, 1), (2, 3, 33, 97), (8, 4, 64, 48),
+                                   (4, 2, 128, 128), (4, 2, 129, 64)])
 def test_kernel_matches_plain(cuda_device, dtype, tol, shape):  # noqa: F811
     q, k, v = _qkv(shape, 6, cuda_device, dtype)
     scale = shape[-1] ** -0.5
-    before = tk.fused_mhsa.launches
+    route = "tensor_core" if dtype == torch.bfloat16 and shape[2] <= 128 else "general"
+    assert tk.mhsa_route(q) == route
+    before, before_route = tk.fused_mhsa.launches, tk.fused_mhsa.route_launches[route]
     got = tk.fused_mhsa(q, k, v, scale, out=torch.full_like(q, float("nan")))
     torch.cuda.synchronize()
     assert tk.fused_mhsa.launches == before + 1
+    assert tk.fused_mhsa.route_launches[route] == before_route + 1
     want = tk.fused_mhsa_reference(q, k, v, scale)
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("shape", [(64, 100, 6, 42), (16, 25, 6, 85), (3, 1, 1, 1),
+                                   (2, 33, 3, 97), (8, 64, 4, 48), (4, 128, 2, 128)])
+def test_tensor_core_route_on_packed_views(cuda_device, shape):  # noqa: F811
+    """bf16 heads split out of a packed qkv tensor, output through a
+    (B, T, H, hd) view pre-filled with NaN; the general route, forced, agrees
+    on the same views. 2e-2: one bf16 ulp of outputs up to ~3, plus the
+    probabilities' bf16 rounding."""
+    b, t, h, hd = shape
+    rng = np.random.default_rng(t + hd)
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3, h, hd)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    want = tk.fused_mhsa_reference(q, k, v, hd ** -0.5).float()
+    for route in ("tensor_core", "general"):
+        out = torch.full((b, t, h, hd), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+        before = dict(tk.fused_mhsa.route_launches)
+        with tk.force_route(route if route == "general" else None):
+            got = tk.fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2))
+        torch.cuda.synchronize()
+        after = tk.fused_mhsa.route_launches
+        assert after[route] == before[route] + 1 and sum(after.values()) == sum(before.values()) + 1
+        assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+def test_kernel_leaves_neighbouring_heads_alone(cuda_device):  # noqa: F811
+    """Only heads 0, 2, 4 are computed, through views; the columns of heads
+    1, 3, 5 lie between theirs in every output row and must stay NaN."""
+    b, t, h, hd = 64, 100, 6, 42
+    qkv = torch.randn(b, t, 3, h, hd, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x.transpose(1, 2)[:, ::2] for x in qkv.unbind(2))
+    out = torch.full((b, t, h, hd), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+    before = tk.fused_mhsa.route_launches["tensor_core"]
+    got = tk.fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2)[:, ::2])
+    torch.cuda.synchronize()
+    assert tk.fused_mhsa.route_launches["tensor_core"] == before + 1
+    want = tk.fused_mhsa_reference(q, k, v, hd ** -0.5)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert out[:, :, 1::2].isnan().all()
+    assert not out[:, :, ::2].isnan().any()
+
+
+def test_forced_routes_are_counted_or_refused(cuda_device):  # noqa: F811
+    q, k, v = _qkv((2, 3, 40, 32), 7, cuda_device, torch.bfloat16)
+    before = dict(tk.fused_mhsa.route_launches)
+    tk.fused_mhsa(q, k, v, 1.0)
+    tk.fused_mhsa(q, k, v, 1.0, route="general")
+    with tk.force_route("general"):
+        tk.fused_mhsa(q, k, v, 1.0)
+    after = tk.fused_mhsa.route_launches
+    assert after["tensor_core"] == before["tensor_core"] + 1
+    assert after["general"] == before["general"] + 2
+    with pytest.raises(ValueError, match="tensor-core route"):
+        tk.fused_mhsa(q.float(), k.float(), v.float(), 1.0, route="tensor_core")
+    cost, w1, w2 = _ot_problem(6, 13, 13, seed=1, device=cuda_device)
+    before = dict(tks.sinkhorn_pallas.route_launches)
+    tks.sinkhorn_pallas(cost, w1, w2)
+    tks.sinkhorn_pallas(cost, w1, w2, route="general")
+    after = tks.sinkhorn_pallas.route_launches
+    assert after["packed"] == before["packed"] + 1 and after["general"] == before["general"] + 1
+    cost, w1, w2 = _ot_problem(2, 33, 33, seed=1, device=cuda_device)
+    with pytest.raises(ValueError, match="packed route"):
+        tks.sinkhorn_pallas(cost, w1, w2, route="packed")
 
 
 def test_kernel_reads_strided_views(cuda_device):  # noqa: F811
@@ -66,19 +134,32 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):  # noqa: F811
         tk.fused_mhsa(w, w, w, 1.0)
 
 
-def test_encoder_fused_path_matches_plain(cuda_device):  # noqa: F811
-    """Stage 2 (T=100) runs the kernel once per block; fp32 with TF32 off."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_fused_path_matches_plain(cuda_device, dtype):  # noqa: F811
+    """Stage 2 (T=100) runs the kernel once per block. fp32 with TF32 off:
+    1e-4. In bf16 the plain path is another function (it rounds scores and
+    softmax to bf16), so both bf16 paths are held against the fp32 plain
+    features: the kernel path may be off by at most twice what the plain bf16
+    path is off, plus 1e-2."""
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 80, 80, 3))
                          .astype(np.float32)).to(cuda_device)
-    plain = Visformer(**SMALL_VISFORMER, device=cuda_device, seed=1)
-    fused = Visformer(**SMALL_VISFORMER, use_pallas_attn=True, device=cuda_device, seed=1)
-    before = tk.fused_mhsa.launches
+    plain32 = Visformer(**SMALL_VISFORMER, device=cuda_device, seed=1)
+    plain = Visformer(**SMALL_VISFORMER, dtype=dtype, device=cuda_device, seed=1)
+    fused = Visformer(**SMALL_VISFORMER, use_pallas_attn=True, dtype=dtype,
+                      device=cuda_device, seed=1)
+    route = "general" if dtype == torch.float32 else "tensor_core"
+    before = tk.fused_mhsa.launches, tk.fused_mhsa.route_launches[route]
     with torch.no_grad():
-        got, want = fused(x), plain(x)
+        got, want, ref = fused(x), plain(x), plain32(x)
     torch.cuda.synchronize()
-    assert tk.fused_mhsa.launches == before + SMALL_VISFORMER["depth"][1]
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert tk.fused_mhsa.launches == before[0] + SMALL_VISFORMER["depth"][1]
+    assert tk.fused_mhsa.route_launches[route] == before[1] + SMALL_VISFORMER["depth"][1]
+    for a, b, r in zip(got, want, ref):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            off_plain = (b.float() - r).abs().max().item()
+            assert (a.float() - r).abs().max().item() <= 2 * off_plain + 1e-2
 
 
 def _ot_problem(b, n1, n2, seed, device):
@@ -91,14 +172,22 @@ def _ot_problem(b, n1, n2, seed, device):
 
 @pytest.mark.parametrize("shape,iters", [((3000, 13, 13), 100), ((300, 25, 25), 100),
                                          ((5, 9, 13), 100), ((7, 64, 64), 100),
-                                         ((4, 1, 33), 10), ((2, 38, 38), 0)])
-def test_sinkhorn_kernel_matches_plain(cuda_device, shape, iters):  # noqa: F811
+                                         ((4, 1, 33), 10), ((2, 38, 38), 0),
+                                         ((160, 13, 13), 100), ((3001, 13, 13), 100),
+                                         ((5, 16, 16), 100), ((5, 17, 9), 100),
+                                         ((5, 32, 32), 100), ((5, 33, 33), 100),
+                                         ((7, 13, 13), 0), ((7, 25, 13), 1)])
+@pytest.mark.parametrize("forced", [None, "general"])
+def test_sinkhorn_kernel_matches_plain(cuda_device, shape, iters, forced):  # noqa: F811
     cost, w1, w2 = _ot_problem(*shape, seed=sum(shape), device=cuda_device)
-    before = tks.sinkhorn_pallas.launches
-    got = tks.sinkhorn_pallas(cost, w1, w2, iters=iters,
+    route = forced or ("packed" if max(shape[1:]) <= 32 else "general")
+    assert forced or tks.sinkhorn_route(*shape[1:]) == route
+    before, before_route = tks.sinkhorn_pallas.launches, tks.sinkhorn_pallas.route_launches[route]
+    got = tks.sinkhorn_pallas(cost, w1, w2, iters=iters, route=forced,
                               out=torch.full_like(cost, float("nan")))
     torch.cuda.synchronize()
     assert tks.sinkhorn_pallas.launches == before + 1
+    assert tks.sinkhorn_pallas.route_launches[route] == before_route + 1
     want = tks.sinkhorn_reference(cost, w1, w2, iters=iters)
     assert not got.requires_grad
     assert (got - want).abs().max().item() <= 1e-4
