@@ -30,11 +30,27 @@ Phases, in order; any failure exits non-zero:
      routes forced, the kernel's alternative) and each kernel in turns (old
      route, new route), its plain version and, for MHSA,
      ``scaled_dot_product_attention`` (a yardstick only) beside the bound;
-  8. print the kernels' JSON line, then the result line.
+  8. SUN-D meta-tuning (``train.meta_tune_emd``'s own functions): the
+     geometry of ``configs/sund_mini_visformer_1shot.yaml`` (grid, 5-way
+     1-shot 15-query, ``bs`` 2, fp32) with ``solver: sinkhorn_pallas``, 4
+     optimizer steps, then a validation epoch as the trainer runs it. One
+     Sinkhorn launch per training episode, all on the packed route, no MHSA
+     launch in training although ``use_pallas_attn`` is on, finite losses,
+     every parameter moved, every BN statistic bit-identical. Then the first
+     step's loss and gradients with the kernel against ``sinkhorn_detached``
+     from the same weights, episode and grid ratios;
+  9. SUN-M meta-tuning (``train.loop.make_meta_tune_epoch``): the geometry of
+     ``configs/meta_tune_mini_visformer_1shot.yaml`` (10-way 1-shot 5-query,
+     8 episodes a step, drop-path 0.5), 10 steps in bf16 and 4 in fp32, one
+     ``evaluate`` pass after each, ``freeze_bn`` both ways, and two seeded
+     runs whose losses must be bit-identical;
+ 10. time both trainers in turns; run both trainer CLIs for two epochs on a
+     small synthetic config in a temporary directory, then resume them;
+ 11. print the ``training`` and the kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
-SUN-D grid episode batch.)
+SUN-D grid episode batch, and of one training step of each trainer.)
 """
 
 from __future__ import annotations
@@ -64,6 +80,21 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 te
 SFU_PER_S = 132 * 16 * 1.98e9
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 SINKHORN_TOL = 1e-4
+ENCODER = "visformer_micro_80"
+# the geometry of configs/sund_mini_visformer_1shot.yaml, on the kernel's solver
+SUND_TRAIN = {"way": 5, "shot": 1, "query": 15, "bs": 2, "lr": 5e-4, "step_size": 10,
+              "gamma": 0.5, "max_epoch": 100, "temperature": 12.5, "solver_iters": 100,
+              "deepemd": "grid", "patch_list": [2, 3], "patch_ratio": 2.0, "image_size": 80,
+              "solver": "sinkhorn_pallas"}
+SUND_TRAIN_STEPS = 4        # 8 training episodes of 80 images * 13 patches
+SUND_VAL_EPISODES = 64      # cached validation, 16 episodes a batch as the trainer groups them
+# the geometry of configs/meta_tune_mini_visformer_1shot.yaml
+SUNM_TRAIN = {"n_train_way": 10, "n_train_shot": 1, "n_train_query": 5, "ep_per_batch": 8,
+              "n_way": 5, "n_shot": 1, "n_query": 15, "max_epoch": 100, "optimizer": "sgd",
+              "optimizer_args": {"lr": 1e-3, "weight_decay": 5e-4, "gamma": 0.5,
+                                 "milestones": [20, 40, 60, 80]}}
+SUNM_STEPS = {"torch.bfloat16": 10, "torch.float32": 4}
+SUNM_VAL_EPISODES = 64
 
 
 def _fail(msg: str) -> None:
@@ -214,6 +245,8 @@ def _check_sinkhorn(gen, dev):
     errs = {}
     cases = (("grid", (b_main, 13, 13), 100), ("fcn", (b_main, 25, 25), 100),
              ("ragged", (5, 9, 13), 100), ("limit", (64, MAX_NODES, MAX_NODES), 100),
+             # one SUN-D training episode: 75 queries x 5 prototypes
+             ("train episode", (WAY * QUERY * WAY, 13, 13), 100),
              ("sfc inner", (160, 13, 13), 100), ("odd batch", (b_main + 1, 13, 13), 100),
              ("half-warp full", (5, 16, 16), 100), ("mixed", (5, 17, 9), 100),
              ("warp full", (5, 32, 32), 100), ("beyond packed", (5, 33, 33), 100),
@@ -332,7 +365,9 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
     b_main = SUND_EP_PER_BATCH * WAY * QUERY * WAY
     b_sfc = SUND_EP_PER_BATCH * SFC_KW["batch_size"] * WAY  # SFC's inner call at 5-shot
     entry = None
-    for name, b, n in (("grid", b_main, 13), ("fcn", b_main, 25), ("sfc inner", b_sfc, 13)):
+    b_train = WAY * QUERY * WAY  # one training episode's (query, prototype) pairs
+    for name, b, n in (("grid", b_main, 13), ("fcn", b_main, 25), ("sfc inner", b_sfc, 13),
+                       ("train episode", b_train, 13)):
         cost, w1, w2 = _ot_problem(b, n, n, gen, dev)
         route = sinkhorn_mod.sinkhorn_route(n, n)
         times = {"old": [], "new": []}
@@ -349,7 +384,10 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
         if name == "grid":  # the main path's shape
             entry = {"kernel_route": route, "ms": ms, "prev_ms": prev_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
-        if name != "sfc inner" and not ms < prev_ms:
+        if name == "train episode":
+            train_entry = {"shape": [b, n, n], "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+        if name in ("grid", "fcn") and not ms < prev_ms:
             _fail(f"the packed sinkhorn_pallas ({ms:.4f} ms) is not faster than the general "
                   f"route ({prev_ms:.4f} ms) at {name}")
 
@@ -366,7 +404,413 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
             "source": "fewshot_vit_tpu_torch/csrc/sinkhorn.cu",
             "replaces": "fewshot_vit_tpu/kernels/sinkhorn.py:71",
             "launches": launches, "route_launches": route_launches, **entry,
-            "library_ms": None}
+            "library_ms": None, "train_episode": train_entry}
+
+
+def _state_copy(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def _is_bn_stat(key: str) -> bool:
+    return key.endswith("running_mean") or key.endswith("running_var")
+
+
+def _check_moved(label, module, before, bn_frozen):
+    """Every parameter changed; every BN running statistic bit-identical when
+    ``bn_frozen``, changed otherwise."""
+    import torch
+
+    params = {k for k, _ in module.named_parameters()}
+    for k, v in module.state_dict().items():
+        same = torch.equal(v, before[k])
+        if k in params and same:
+            _fail(f"{label}: parameter {k} did not change")
+        if _is_bn_stat(k) and same != bn_frozen:
+            _fail(f"{label}: BN statistic {k} {'changed' if bn_frozen else 'did not change'}")
+
+
+def _profile_to(path, card, fn):
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
+    with open(path, "w") as f:
+        f.write(f"{card}\n{table}\n")
+    print("\n".join(table.splitlines()[:25]))
+
+
+def _train_sund(dev, ds, images_dev, val_ds, tag, profile, card):
+    """Phase 8 and its share of phase 10. Returns (training entry, launch counts)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.patches import draw_grid_ratios
+    from fewshot_vit_tpu_torch.data.sampler import EpisodeSampler
+    from fewshot_vit_tpu_torch.eval.emd_eval import evaluate_emd, sample_emd_episode_indices
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train import meta_tune_emd as tt
+    from fewshot_vit_tpu_torch.train.loop import metrics_mean
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    c = SUND_TRAIN
+    way, shot, query, bs = c["way"], c["shot"], c["query"], c["bs"]
+    labels = torch.arange(way, device=dev).repeat(query)
+
+    def make(solver, dtype=torch.float32):
+        head = models.make("deepemd", encoder=ENCODER, encoder_args={"use_pallas_attn": True},
+                           temperature=c["temperature"], solver_iters=c["solver_iters"],
+                           solver=solver, dtype=dtype, device=dev, seed=0)
+        fn = tt.make_emd_episode_fn(
+            head, way, shot, query,
+            tt.make_patch_fn(c["deepemd"], c["patch_list"], c["patch_ratio"], c["image_size"],
+                             train=True),
+            ds.mean, ds.std, sfc=False, train=True)
+        state = TrainState(head, tt.build_sund_optimizer(Config(c), head.parameters()))
+        return head, fn, state, tt.make_emd_epoch_fn(fn, labels, bs)
+
+    def draw_idx(steps, epoch):
+        sampler = EpisodeSampler(ds.labels, steps, way, shot + query, bs)
+        rng = rng_mod.np_rng(0, epoch)
+        idx = np.stack([tt.interleaved(sampler.batch(rng), bs, way, shot + query)
+                        for _ in range(steps)]).astype(np.int64)
+        return torch.from_numpy(idx).to(dev)
+
+    # the slice's main path: 4 optimizer steps, then the trainer's validation
+    head, fn, state, epoch_fn = make(c["solver"])
+    before = _state_copy(head)
+    idx = draw_idx(SUND_TRAIN_STEPS, 1)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    state.optimizer.set_epoch(0)
+    t0 = time.perf_counter()
+    m = epoch_fn(state, images_dev, idx, (0, 1))
+    losses = m["loss"].cpu().numpy()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_counts = {"fused_mhsa": dict(fused_mhsa.route_launches),
+                    "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
+    n_train = SUND_TRAIN_STEPS * bs
+    print(f"SUN-D meta-tuning fp32 {c['solver']}: {SUND_TRAIN_STEPS} steps of bs {bs} "
+          f"({way}-way {shot}-shot {query}-query grid, {way * (shot + query) * 13} patch images "
+          f"an episode), losses {losses.tolist()}, acc {metrics_mean(m)['acc']:.4f}, launches "
+          f"{train_counts}, {wall:.2f} s, peak memory {peak:.2f} GiB")
+    if not np.isfinite(losses).all():
+        _fail(f"SUN-D meta-tuning: a loss is not finite: {losses}")
+    if train_counts != {"fused_mhsa": {"general": 0, "tensor_core": 0},
+                        "sinkhorn_pallas": {"general": 0, "packed": n_train}}:
+        _fail(f"SUN-D meta-tuning: expected {n_train} packed Sinkhorn launches (one per "
+              f"training episode) and no MHSA launch, counted {train_counts}")
+    _check_moved("SUN-D meta-tuning", head, before, bn_frozen=True)
+
+    val_idx = sample_emd_episode_indices(val_ds, SUND_VAL_EPISODES, way, shot + query, seed=0)
+    val_images = torch.from_numpy(val_ds.images).to(dev)
+
+    def validate(h):
+        h.eval()
+        return evaluate_emd(h, val_ds, way=way, shot=shot, query=query, ep_per_batch=16,
+                            mode=c["deepemd"], cached=True, indices=val_idx,
+                            patch_list=c["patch_list"], patch_ratio=c["patch_ratio"],
+                            image_size=c["image_size"], images_dev=val_images, seed=0,
+                            device=dev)
+
+    va, ci, accs = validate(head)
+    torch.cuda.synchronize()
+    total = {"fused_mhsa": dict(fused_mhsa.route_launches),
+             "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
+    n_val_batches = math.ceil(SUND_VAL_EPISODES / 16)
+    n_enc_batches = math.ceil(len(val_ds) / 128)  # the node cache encodes 128 images a batch
+    # fp32 attention takes the kernel's general route (the tensor-core one is bf16);
+    # one launch per stage-2 block (T = 100) and encoder batch
+    n_attn = len(head.encoder.stage2)
+    val_counts = {"fused_mhsa": total["fused_mhsa"]["general"],
+                  "sinkhorn_pallas": total["sinkhorn_pallas"]["packed"] - n_train}
+    print(f"SUN-D validation after training (cached, fp32): {SUND_VAL_EPISODES} episodes, "
+          f"acc={va * 100:.2f} +- {ci * 100:.2f} %, launches in validation {val_counts}")
+    if (val_counts != {"fused_mhsa": n_attn * n_enc_batches, "sinkhorn_pallas": n_val_batches}
+            or total["fused_mhsa"]["tensor_core"] or total["sinkhorn_pallas"]["general"]):
+        _fail(f"SUN-D validation: expected {n_attn * n_enc_batches} MHSA and {n_val_batches} "
+              f"Sinkhorn launches on the general and packed routes, counted {total}")
+    if accs.shape != (SUND_VAL_EPISODES,) or not ((accs >= 0) & (accs <= 1)).all():
+        _fail(f"SUN-D validation: episode accuracies malformed: shape {accs.shape}")
+    if not (fused_mhsa.launches and sinkhorn_pallas.launches):
+        _fail("the SUN-D trainer's path (training steps + validation) missed a kernel")
+
+    # kernel path against plain path, under grad: the first step's first
+    # episode from the same weights, indices and injected grid ratios
+    ep = images_dev[idx[0, 0]][None]
+    ratios = draw_grid_ratios(torch.Generator(device=dev).manual_seed(7),
+                              way * (shot + query), len(c["patch_list"]))
+    out = {}
+    for solver in ("sinkhorn_pallas", "sinkhorn_detached"):
+        h, f, _, _ = make(solver)
+        loss = F.cross_entropy(f(ep, [0], ratios=ratios)[0].float(), labels)
+        loss.backward()
+        out[solver] = (loss.item(), {k: p.grad for k, p in h.named_parameters()})
+        del h, f, loss
+    (loss_k, grads_k), (loss_p, grads_p) = out["sinkhorn_pallas"], out["sinkhorn_detached"]
+    worst, worst_key = 0.0, None
+    for k, g in grads_p.items():
+        rel = ((grads_k[k] - g).abs().max() / g.abs().max()).item()
+        if not rel <= worst:  # also catches NaN
+            worst, worst_key = rel, k
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"SUN-D training step fp32 (TF32 off), sinkhorn_pallas vs sinkhorn_detached under "
+          f"grad: loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel_loss:.2e}, tol 1e-4), worst "
+          f"gradient max|d|/max|g| {worst:.2e} at {worst_key} (tol 1e-3, "
+          f"{len(grads_p)} tensors)")
+    if not rel_loss <= 1e-4 or not worst <= 1e-3:
+        _fail("SUN-D training: the kernel path and the plain path disagree under grad")
+    del out, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # timings, in turns: episodes/s of training with each solver (fp32), then bf16
+    timed_steps = 2
+    eps = {"sinkhorn_pallas": [], "sinkhorn_detached": []}
+    runs = {s: make(s) for s in eps}
+    for solver in ("sinkhorn_pallas", "sinkhorn_detached", "sinkhorn_detached",
+                   "sinkhorn_pallas"):
+        _, _, st, ef = runs[solver]
+        ef(st, images_dev, draw_idx(1, 2), (0, 2))  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ef(st, images_dev, draw_idx(timed_steps, 3), (0, 3))["loss"].cpu()
+        eps[solver].append(timed_steps * bs / (time.perf_counter() - t0))
+    del runs
+    torch.cuda.empty_cache()
+    _, _, st16, ef16 = make("sinkhorn_pallas", torch.bfloat16)
+    ef16(st16, images_dev, draw_idx(1, 2), (0, 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss16 = ef16(st16, images_dev, draw_idx(timed_steps, 3), (0, 3))["loss"].cpu().numpy()
+    eps_bf16 = timed_steps * bs / (time.perf_counter() - t0)
+    if not np.isfinite(loss16).all():
+        _fail(f"SUN-D meta-tuning bf16: a loss is not finite: {loss16}")
+    print(f"timing {tag}: SUN-D meta-tuning episodes/s (bs {bs}, {timed_steps} steps a run), "
+          f"fp32 sinkhorn_pallas: {eps['sinkhorn_pallas']}; fp32 sinkhorn_detached: "
+          f"{eps['sinkhorn_detached']}; bf16 encoder sinkhorn_pallas: {eps_bf16:.3f}")
+    if profile:
+        _profile_to(os.path.join(profile, "profile_train_sund.txt"), card,
+                    lambda: epoch_fn(state, images_dev, draw_idx(1, 4), (0, 4)))
+    entry = {"sund_train_episodes_per_s": {**eps, "sinkhorn_pallas_bf16": eps_bf16},
+             "sund_train_peak_gib": peak, "sund_train_losses": losses.tolist(),
+             "sund_val_acc": va}
+    return entry, {"sund_meta_tune": train_counts, "sund_validation": val_counts}
+
+
+def _train_sunm(dev, ds, images_dev, val_ds, tag, profile, card):
+    """Phase 9 and its share of phase 10. Returns (training entry, launch counts)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.sampler import EpisodeSampler
+    from fewshot_vit_tpu_torch.eval.episodic import evaluate
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train.loop import make_meta_tune_epoch
+    from fewshot_vit_tpu_torch.train.runner import build_optimizer
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    c = SUNM_TRAIN
+    way, shot, query, epb = c["n_train_way"], c["n_train_shot"], c["n_train_query"], c["ep_per_batch"]
+    val_images = torch.from_numpy(val_ds.images).to(dev)
+
+    def make(dtype, drop_path=0.5, seed=0):
+        head = models.make("meta-baseline", encoder=ENCODER,
+                           encoder_args={"drop_path_rate": drop_path, "use_pallas_attn": True},
+                           dtype=dtype, device=dev, seed=seed)
+        return head, TrainState(head, build_optimizer(Config(c), head.parameters()))
+
+    def draw_idx(steps, epoch):
+        sampler = EpisodeSampler(ds.labels, steps, way, shot + query, epb)
+        idx = np.stack(list(sampler.epoch(rng_mod.np_rng(0, epoch)))).astype(np.int64)
+        return torch.from_numpy(idx).to(dev)
+
+    def run(state, steps, epoch, freeze_bn=False):
+        fn = make_meta_tune_epoch(way, shot, query, epb, freeze_bn=freeze_bn,
+                                  mean=ds.mean, std=ds.std)
+        state.optimizer.set_epoch(0)
+        return fn(state, images_dev, draw_idx(steps, epoch), (0, epoch))
+
+    counts, entry = {}, {}
+    n_val_batches = math.ceil(SUNM_VAL_EPISODES / epb)
+    for dtype in (torch.bfloat16, torch.float32):
+        steps = SUNM_STEPS[str(dtype)]
+        head, state = make(dtype)
+        before = _state_copy(head)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        losses = run(state, steps, 1)["loss"].cpu().numpy()
+        wall = time.perf_counter() - t0
+        if fused_mhsa.launches or sinkhorn_pallas.launches:
+            _fail(f"SUN-M meta-tuning {dtype}: a training step launched a kernel: "
+                  f"{fused_mhsa.route_launches} {sinkhorn_pallas.route_launches}")
+        print(f"SUN-M meta-tuning {dtype}: {steps} steps of {epb} episodes ({way}-way {shot}-shot "
+              f"{query}-query, {epb * way * (shot + query)} images a step, drop-path 0.5), "
+              f"losses {losses.tolist()}, temp {head.temp.item():.6f}, {wall:.2f} s with warm-up")
+        if not np.isfinite(losses).all():
+            _fail(f"SUN-M meta-tuning {dtype}: a loss is not finite: {losses}")
+        _check_moved(f"SUN-M meta-tuning {dtype}", head, before, bn_frozen=False)  # temp too
+        head.eval()
+        acc, ci, accs = evaluate(head, val_ds, n_episodes=SUNM_VAL_EPISODES, way=c["n_way"],
+                                 shot=c["n_shot"], query=c["n_query"], ep_per_batch=epb, seed=0,
+                                 images_dev=val_images, device=dev)
+        torch.cuda.synchronize()
+        routes = dict(fused_mhsa.route_launches)
+        n_mhsa = len(head.encoder.stage2) * n_val_batches  # per stage-2 block and eval batch
+        want = ({"general": 0, "tensor_core": n_mhsa} if dtype == torch.bfloat16
+                else {"general": n_mhsa, "tensor_core": 0})
+        print(f"SUN-M validation after training {dtype}: {SUNM_VAL_EPISODES} episodes, "
+              f"acc={acc * 100:.2f} +- {ci * 100:.2f} %, fused_mhsa launches {routes}")
+        if routes != want or sinkhorn_pallas.launches:
+            _fail(f"SUN-M validation {dtype}: expected fused_mhsa launches {want}, got {routes}")
+        if accs.shape != (SUNM_VAL_EPISODES,) or not ((accs >= 0) & (accs <= 1)).all():
+            _fail(f"SUN-M validation {dtype}: episode accuracies malformed")
+        counts[f"sunm_meta_tune_{str(dtype).split('.')[1]}"] = {"fused_mhsa": 0, "sinkhorn_pallas": 0}
+        counts[f"sunm_validation_{str(dtype).split('.')[1]}"] = {"fused_mhsa": routes,
+                                                                 "sinkhorn_pallas": 0}
+        entry[f"sunm_val_acc_{str(dtype).split('.')[1]}"] = acc
+        del head, state
+
+    head, state = make(torch.bfloat16)
+    before = _state_copy(head)
+    losses = run(state, 2, 1, freeze_bn=True)["loss"].cpu().numpy()
+    _check_moved("SUN-M meta-tuning, freeze_bn", head, before, bn_frozen=True)
+    print(f"SUN-M meta-tuning bf16 with freeze_bn: losses {losses.tolist()}, every BN "
+          f"statistic bit-identical, every parameter moved")
+
+    # determinism of the port's generators: same seed, same indices -> same
+    # losses, bit for bit; without drop-path as the plainest case, then with
+    # it, where every step's masks come from the (seed, epoch, step) generator
+    cudnn_det, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    for drop_path in (0.0, 0.5):
+        a = run(make(torch.float32, drop_path)[1], 3, 1)["loss"].cpu().numpy()
+        b = run(make(torch.float32, drop_path)[1], 3, 1)["loss"].cpu().numpy()
+        print(f"SUN-M meta-tuning fp32, drop-path {drop_path}, two runs from one seed: "
+              f"losses {a.tolist()} and {b.tolist()}")
+        if not np.array_equal(a, b):
+            _fail(f"SUN-M meta-tuning is not deterministic at drop-path {drop_path}")
+    other = run(make(torch.float32, 0.5)[1], 3, 2)["loss"].cpu().numpy()
+    if np.array_equal(other, a):
+        _fail("another epoch key gave the same losses: the generators are not keyed")
+    torch.backends.cudnn.deterministic = cudnn_det
+
+    # timings, in turns
+    timed = 6
+    rate = {"torch.bfloat16": [], "torch.float32": []}
+    states = {str(d): make(d)[1] for d in (torch.bfloat16, torch.float32)}
+    for name in ("torch.bfloat16", "torch.float32", "torch.float32", "torch.bfloat16"):
+        run(states[name], 1, 2)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(states[name], timed, 3)["loss"].cpu()
+        rate[name].append(timed / (time.perf_counter() - t0))
+    print(f"timing {tag}: SUN-M meta-tuning steps/s ({epb} episodes, "
+          f"{epb * way * (shot + query)} images a step; {timed} steps a run), bf16: "
+          f"{rate['torch.bfloat16']}; fp32 (TF32 off): {rate['torch.float32']}; "
+          f"episodes/s = {epb} x steps/s")
+    if profile:
+        _profile_to(os.path.join(profile, "profile_train_sunm.txt"), card,
+                    lambda: run(states["torch.bfloat16"], 1, 4))
+    entry.update({"sunm_train_steps_per_s": {"bf16": rate["torch.bfloat16"],
+                                             "fp32": rate["torch.float32"]},
+                  "sunm_episodes_per_step": epb})
+    return entry, counts
+
+
+_CLI_COMMON = """
+train_dataset: synthetic
+train_dataset_args: {n_classes: 12, n_per_class: 30, image_size: 80}
+val_dataset: synthetic
+val_dataset_args: {n_classes: 10, n_per_class: 25, image_size: 80, seed: 3}
+max_epoch: %d
+resume: %s
+"""
+_CLI_SUNM = _CLI_COMMON + """
+model: meta-baseline
+model_args: {encoder: visformer_micro_80, dtype: bf16,
+             encoder_args: {drop_path_rate: 0.5, use_pallas_attn: true}}
+n_way: 5
+n_shot: 1
+n_query: 5
+n_train_way: 6
+n_train_query: 5
+ep_per_batch: 4
+train_batches: 3
+optimizer: sgd
+optimizer_args: {lr: 1.e-3, weight_decay: 5.e-4, milestones: [1], gamma: 0.5}
+val_episodes: 16
+"""
+_CLI_SUND = _CLI_COMMON + """
+model_args: {encoder: visformer_micro_80, encoder_args: {use_pallas_attn: true}}
+deepemd: grid
+patch_list: [2, 3]
+patch_ratio: 2
+solver: sinkhorn_pallas
+way: 5
+shot: 1
+query: 5
+bs: 2
+train_batches: 2
+lr: 5.e-4
+step_size: 1
+gamma: 0.5
+val_episode: 16
+test_episode: 16
+"""
+
+
+def _run_clis(tag):
+    """Phase 10: both trainer CLIs through ``parse_args`` + ``main`` on the
+    card, two epochs into a temporary --save-root, then a third with
+    ``resume: true``."""
+    import tempfile
+
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train import meta_tune, meta_tune_emd
+    from fewshot_vit_tpu_torch.train.runner import parse_args
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, module, text in (("sunm", meta_tune, _CLI_SUNM), ("sund", meta_tune_emd, _CLI_SUND)):
+            cfg = os.path.join(tmp, f"{name}.yaml")
+            argv = ["--config", cfg, "--save-root", os.path.join(tmp, "save"), "--name", name]
+            run_dir = os.path.join(tmp, "save", name)
+            with open(cfg, "w") as f:
+                f.write(text % (2, "false"))
+            _zero_counts(fused_mhsa, sinkhorn_pallas)
+            t0 = time.perf_counter()
+            state = module.main(*parse_args(f"chip_smoke {name}", argv))
+            wall = time.perf_counter() - t0
+            with open(cfg, "w") as f:
+                f.write(text % (3, "true"))
+            resumed = module.main(*parse_args(f"chip_smoke {name}", argv))
+            with open(os.path.join(run_dir, "log.txt")) as f:
+                log = f.read()
+            made = sorted(os.listdir(run_dir))
+            print(f"CLI {name} {tag}: 2 epochs in {wall:.1f} s, then resumed for epoch 3; "
+                  f"steps {state.step} -> {resumed.step}; wrote {made}; launches "
+                  f"fused_mhsa={fused_mhsa.launches} sinkhorn_pallas={sinkhorn_pallas.launches}")
+            need = ["epoch-last", "log.txt", "max-va", "metrics.jsonl", "resume"]
+            if name == "sund":
+                need.append("results.txt")
+            if any(n not in made for n in need):
+                _fail(f"CLI {name}: expected {need} in the run directory, found {made}")
+            if ("resumed full train state from epoch 2" not in log or "\nepoch 3 " not in log
+                    or log.count("\nepoch 2 ") != 1):
+                _fail(f"CLI {name}: the resumed run did not start at epoch 3")
+            if resumed.step != state.step * 3 // 2:
+                _fail(f"CLI {name}: step count {resumed.step} after resume, from {state.step}")
+            if not fused_mhsa.launches or (name == "sund" and not sinkhorn_pallas.launches):
+                _fail(f"CLI {name}: its run launched no kernel")
 
 
 def main() -> int:
@@ -558,7 +1002,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     sinkhorn = _run_sund(dev, ds, images_dev, tag, gen, args.profile, card)
-    kernels.append({**sinkhorn, "max_abs_err": sinkhorn_errs["grid"]})
+    kernels.append({**sinkhorn, "max_abs_err": sinkhorn_errs["grid"],
+                    "max_abs_err_train_shape": sinkhorn_errs["train episode"]})
+    torch.cuda.empty_cache()
+
+    # phases 8-10: the two trainers
+    val_ds = datasets.make("synthetic", n_classes=20, n_per_class=40, image_size=80, seed=3)
+    training, train_launches = _train_sund(dev, ds, images_dev, val_ds, tag, args.profile, card)
+    torch.cuda.empty_cache()
+    sunm, sunm_launches = _train_sunm(dev, ds, images_dev, val_ds, tag, args.profile, card)
+    training.update(sunm)
+    train_launches.update(sunm_launches)
+    torch.cuda.empty_cache()
+    _run_clis(tag)
+    for entry in kernels:
+        entry["train_launches"] = {
+            path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
+                   else sum(c[entry["name"]].values()))
+            for path, c in train_launches.items()}
+    print(json.dumps({"training": training, "card": card}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,19 @@ Ported so far:
     folding, bf16 activations and the fused-MHSA kernel (``csrc/mhsa.cu``);
   * slice 2, the SUN-D episodic eval: ``DeepEMD`` over the same encoder in
     grid and fcn modes, EMD logits, SFC prototype refinement, and the
-    Sinkhorn kernel (``csrc/sinkhorn.cu``) behind ``solver: sinkhorn_pallas``.
+    Sinkhorn kernel (``csrc/sinkhorn.cu``) behind ``solver: sinkhorn_pallas``;
+  * slice 3: both kernels redesigned for Hopper (a tensor-core MHSA route, a
+    packed Sinkhorn route);
+  * slice 4, the two meta-tuning trainers: ``train.meta_tune`` (SUN-M) and
+    ``train.meta_tune_emd`` (SUN-D, with the Sinkhorn kernel in the training
+    forward), training-mode Visformer (batch-statistics BN, dropout,
+    drop-path), optimizer recipes on ``torch.optim``, checkpoints and resume.
 
 Entry points (``models.make``, ``eval.episodic.evaluate``/``encode_dataset``,
-``eval.emd_eval.evaluate_emd``, ``python -m fewshot_vit_tpu_torch.eval.run``
-and ``python -m fewshot_vit_tpu_torch.eval.run_emd``) run on
-``device="cuda"`` unless told ``device="cpu"``; without a card they raise.
+``eval.emd_eval.evaluate_emd``, and ``python -m fewshot_vit_tpu_torch.X`` for
+X in ``eval.run``, ``eval.run_emd``, ``train.meta_tune``,
+``train.meta_tune_emd``) run on ``device="cuda"`` unless told
+``device="cpu"``; without a card they raise.
 """
 
 __version__ = "0.1.0"

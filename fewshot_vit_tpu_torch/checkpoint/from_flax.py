@@ -11,7 +11,15 @@ the same keys will load reference ``.pth`` files. Layouts:
   * Dense kernel (I, O) -> 1x1 conv (O, I, 1, 1);
   * 2-D positional embedding NHWC (1, H, W, C) -> NCHW (1, C, H, W).
 
-A head's ``encoder`` subtree maps under the ``encoder.`` prefix.
+A head's ``encoder`` subtree maps under the ``encoder.`` prefix; the
+MetaBaseline ``temp`` and the DeepEMD pretrain ``fc`` (a plain ``nn.Linear``:
+kernel (I, O) -> weight (O, I)) map at the top level. ``batch_stats`` of an
+unfolded encoder become the ``running_mean`` / ``running_var`` buffers.
+
+The mapping is a relabelling with transpositions, so it is linear: applied to
+a tree of JAX GRADIENTS (``{"params": grads}``) it gives the port's gradients
+under the parameters' names, which is how the tests compare ``jax.grad`` with
+``.grad``.
 """
 
 from __future__ import annotations
@@ -70,6 +78,8 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 def _to_torch_layout(path: Tuple[str, ...], w: np.ndarray) -> np.ndarray:
     name = path[-1]
     if name == "kernel":
+        if w.ndim == 2 and len(path) == 2 and path[0] == "fc":  # head-level nn.Linear
+            return np.transpose(w, (1, 0))
         if w.ndim == 4:
             return np.transpose(w, (3, 2, 0, 1))
         if w.ndim == 2:

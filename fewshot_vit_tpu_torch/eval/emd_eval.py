@@ -107,6 +107,7 @@ def evaluate_emd(
     patch_list: Sequence[int] = (2, 3),
     patch_ratio: float = 2.0,
     image_size: int = 80,
+    num_patch: int = 9,
     sfc_kw: Optional[dict] = None,
     images_dev: Optional[torch.Tensor] = None,
     seed: int = rng_mod.DEFAULT_SEED,
@@ -118,7 +119,10 @@ def evaluate_emd(
     with explicit interleaved ``(n_episodes, way*(shot+query))`` indices.
     ``images_dev`` is ``dataset.images`` already on the device (uint8).
     SFC (shot > 1) takes ``sfc_kw`` (``steps``, ``lr``, ``batch_size``) and
-    runs with autograd inside this ``no_grad`` eval."""
+    runs with autograd inside this ``no_grad`` eval. ``mode='sampling'``
+    (``num_patch`` random resized crops per image) draws each episode batch's
+    crops from a generator seeded by (``seed``, its first global episode
+    index); its patches are random, so it cannot be ``cached``."""
     dev = resolve_device(device)
     _on_device(head, dev)
     if indices is None:
@@ -127,8 +131,11 @@ def evaluate_emd(
     idx = torch.from_numpy(group_episode_indices(indices, max(1, ep_per_batch))
                            .astype(np.int64)).to(dev)
     images_dev = _upload(dataset, images_dev, dev)
-    patch_fn = make_patch_fn(mode, patch_list, patch_ratio, image_size, train=False)
+    patch_fn = make_patch_fn(mode, patch_list, patch_ratio, image_size, train=False,
+                             num_patch=num_patch)
     sfc = shot > 1
+    if cached and mode == "sampling":
+        raise ValueError("'sampling' patches are random per episode: they cannot be cached")
     if cached:
         data = make_emd_node_cache_fn(head, patch_fn, dataset.mean, dataset.std)(images_dev)
         ep_fn = make_emd_cached_episode_fn(head, way, shot, sfc, sfc_kw, seed)

@@ -34,9 +34,6 @@ from ..models import visformer as _visformer  # noqa: F401  (registers the encod
 from ..ops.emd import emd_distance, normalize_weights, sinkhorn
 from ..ops.metric import l2_normalize
 
-_TRAINING_SLICE = "comes with the training slice (ROADMAP.md section 1, slice 3)"
-
-
 # --- node-feature math (node-major: (..., N, C)) --------------------------------
 
 
@@ -247,17 +244,32 @@ def _canonical_solver(solver: str) -> str:
 
 
 class DeepEMD(nn.Module):
-    """Encoder + DeepEMD matching (eval)."""
+    """Encoder + DeepEMD matching, or (``n_classes``) the pretrain classifier
+    ``fc`` over the pooled feature.
+
+    In training mode the encoder's dropout and drop-path are live; the SUN-D
+    trainer wraps ``encode_nodes`` in ``models.common.frozen_bn()``. With
+    ``solver: sinkhorn_unrolled`` the flows stay in the autograd graph; with
+    ``sinkhorn_detached`` and ``sinkhorn_pallas`` they are constants."""
+
+    # driven by its own loops (train/meta_tune_emd.py, eval/run_emd.py), not
+    # the standard episodic meta-tune contract (train/meta_tune.py)
+    standard_episodic = False
 
     def __init__(self, encoder: nn.Module, n_classes: Optional[int] = None,
                  temperature: float = 12.5, metric: str = "cosine", norm: str = "center",
                  solver_reg: float = 0.05, solver_iters: int = 100,
                  solver: str = "sinkhorn_detached",
-                 feature_pyramid: Optional[Sequence[int]] = None):
+                 feature_pyramid: Optional[Sequence[int]] = None, seed: int = 0):
         super().__init__()
-        if n_classes is not None:
-            raise NotImplementedError(f"DeepEMD pre_train (n_classes) {_TRAINING_SLICE}")
         self.encoder = encoder
+        self.n_classes = n_classes
+        if n_classes is not None:
+            self.fc = nn.Linear(encoder.out_dim, n_classes)
+            gen = torch.Generator().manual_seed(seed)
+            with torch.no_grad():  # flax Dense defaults: lecun-normal kernel, zero bias
+                self.fc.weight.normal_(0.0, encoder.out_dim ** -0.5, generator=gen)
+                self.fc.bias.zero_()
         self.temperature = temperature
         self.metric = metric
         self.norm = norm
@@ -280,7 +292,13 @@ class DeepEMD(nn.Module):
         return dense.reshape(b, h * w, c)
 
     def pre_train(self, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(f"DeepEMD pre_train {_TRAINING_SLICE}")
+        """x (B, H, W, 3) -> class logits (B, n_classes), in the compute dtype."""
+        _, pooled = self.encoder(x)
+        return F.linear(pooled, self.fc.weight.to(pooled.dtype), self.fc.bias.to(pooled.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The pretrain path when ``n_classes`` is set, else ``encode_nodes``."""
+        return self.pre_train(x) if self.n_classes is not None else self.encode_nodes(x)
 
     def meta(self, proto_nodes: torch.Tensor, query_nodes: torch.Tensor) -> torch.Tensor:
         """proto (..., way, N, C), query (..., Q, N, C) -> (..., Q, way)."""
@@ -311,4 +329,4 @@ def make_deepemd(
     device = resolve_device(device)
     enc = models.make(encoder, dtype=dtype, device=device, seed=seed, **(encoder_args or {}))
     return DeepEMD(enc, n_classes, temperature, metric, norm, solver_reg, solver_iters,
-                   solver, feature_pyramid).to(device).eval()
+                   solver, feature_pyramid, seed).to(device).eval()

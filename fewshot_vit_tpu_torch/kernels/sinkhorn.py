@@ -133,11 +133,17 @@ def sinkhorn_pallas(cost: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     """cost (B, N1, N2), w1 (B, N1), w2 (B, N2), float32 -> detached flow
     (B, N1, N2), the drop-in for ``ops.emd.sinkhorn(differentiable=False)``.
 
+    Inputs may require grad (the SUN-D training forward): they are detached
+    and the flow is returned outside the autograd graph, so gradients reach
+    the encoder only through the similarity map it is multiplied with.
     ``out``, if given, is written in place. CPU tensors take the plain
     version; CUDA tensors launch the kernel of ``route`` (default:
     ``sinkhorn_route``) and add one to ``sinkhorn_pallas.launches`` and to
     ``sinkhorn_pallas.route_launches[route]``.
     """
+    # the flow is a constant of the graph, as the JAX kernel's stop_gradient
+    # makes it: inputs that require grad are read, never differentiated
+    cost, w1, w2 = cost.detach(), w1.detach(), w2.detach()
     if cost.device.type == "cpu":
         flow = sinkhorn_reference(cost, w1, w2, reg, iters)
         return flow if out is None else out.copy_(flow)

@@ -12,13 +12,61 @@ embedding promotes the residual stream to fp32 in both frameworks.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, used across the zoo
+BN_MOMENTUM = 0.1  # torch's convention (flax: momentum 0.9)
+
+# --- trace-time switches of a training forward ------------------------------------
+# ``frozen_bn()`` puts ONLY the BatchNorms on their running statistics while
+# the model stays in training mode (the reference's ``utils.freeze_bn``), and
+# ``draws_from(generator)`` names the ``torch.Generator`` every dropout and
+# drop-path mask of the forward is drawn from.
+_bn_frozen: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "fewshot_vit_bn_frozen", default=False)
+_generator: contextvars.ContextVar[Optional[torch.Generator]] = contextvars.ContextVar(
+    "fewshot_vit_mask_generator", default=None)
+
+
+@contextlib.contextmanager
+def frozen_bn() -> Iterator[None]:
+    """Within this context every zoo BatchNorm normalizes with its running
+    statistics and leaves them untouched, whatever the module's mode; dropout
+    and drop-path stay stochastic."""
+    token = _bn_frozen.set(True)
+    try:
+        yield
+    finally:
+        _bn_frozen.reset(token)
+
+
+def bn_uses_running_stats(training: bool) -> bool:
+    """Eval mode, or training mode inside ``frozen_bn()``."""
+    return (not training) or _bn_frozen.get()
+
+
+@contextlib.contextmanager
+def draws_from(generator: Optional[torch.Generator]) -> Iterator[None]:
+    """Within this context ``Dropout`` and ``DropPath`` draw their masks from
+    ``generator`` (on the tensors' device). ``None`` is torch's default
+    generator; the trainers always pass one seeded from
+    (seed, epoch, step[, episode])."""
+    token = _generator.set(generator)
+    try:
+        yield
+    finally:
+        _generator.reset(token)
+
+
+def _uniform(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.rand(shape, generator=_generator.get(), device=like.device, dtype=torch.float32)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -89,13 +137,64 @@ class FrozenBatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class BatchNorm2d(FrozenBatchNorm):
+    """BatchNorm over NHWC that follows flax's ``nn.BatchNorm``: in eval mode,
+    or inside ``frozen_bn()``, the ``FrozenBatchNorm`` affine; in training mode
+    batch statistics in fp32 over (B, H, W), the variance as
+    ``E[x^2] - E[x]^2`` clamped at 0, and running statistics updated with
+    momentum 0.1 from the BIASED batch variance (``torch.nn.BatchNorm2d``
+    stores the unbiased one; the JAX package is the reference here)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if bn_uses_running_stats(self.training):
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, BN_MOMENTUM)
+            self.running_var.lerp_(var, BN_MOMENTUM)
+        y = (xf - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from the ``draws_from`` generator, or
+    from ``mask`` (bool, broadcastable to ``x``: True keeps). Identity at rate 0
+    and in eval mode."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        if mask is None:
+            mask = _uniform(x.shape, x) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(Dropout):
+    """Per-sample stochastic depth: one draw per batch row, mask of shape
+    (B, 1, 1, 1); kept rows are scaled by ``1 / keep``."""
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if mask is None:
+            mask = _uniform((x.shape[0],) + (1,) * (x.dim() - 1), x) < 1.0 - self.rate
+        return super().forward(x, mask)
+
+
 class BatchNorm(nn.Module):
-    """The zoo's BatchNorm wrapper: a ``FrozenBatchNorm`` named ``bn``
+    """The zoo's BatchNorm wrapper: a ``BatchNorm2d`` named ``bn``
     (state-dict keys ``<name>.bn.weight`` ...), as in the JAX package."""
 
     def __init__(self, c: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.bn = FrozenBatchNorm(c, dtype)
+        self.bn = BatchNorm2d(c, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(x)

@@ -14,8 +14,13 @@ State-dict keys follow the reference torch model (``stem.downsample.1``,
 ``stage2.0.attn.qkv``, ``norm.bn``), the keys the JAX package's
 ``checkpoint/torch_convert.py::visformer_key`` maps to.
 
-Eval only: the JAX package's training-time pieces (dropout, stochastic depth,
-batch-statistics BN) are not ported; a module in training mode raises.
+Training mode (``.train()``) runs batch-statistics BN, dropout (``drop_rate``
+on the positional sums, in the MLP and after the attention projection;
+``attn_drop_rate`` on the attention weights) and stochastic depth (rate
+``drop_path_rate * i / (total - 1)`` for block i). Masks come from the
+generator named by ``models.common.draws_from``; ``models.common.frozen_bn``
+keeps the BNs on running statistics. In training mode attention always takes
+the einsum path: the fused kernel has no backward, in either package.
 """
 
 from __future__ import annotations
@@ -31,8 +36,10 @@ from ..core.registry import models
 from ..kernels.attention import attention_core
 from .common import (
     BatchNorm,
+    BatchNorm2d,
     Conv,
-    FrozenBatchNorm,
+    DropPath,
+    Dropout,
     gelu,
     global_avg_pool,
     kaiming_out_,
@@ -49,7 +56,7 @@ class ConvStem(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         conv = lambda cin, cout, s: Conv(cin, cout, 3, s, 1, bias=fold_bn, dtype=dtype)
-        bn = lambda c: nn.Identity() if fold_bn else FrozenBatchNorm(c, dtype)
+        bn = lambda c: nn.Identity() if fold_bn else BatchNorm2d(c, dtype)
         self.conv1, self.bn1 = conv(3, hidden, 2), bn(hidden)
         self.conv2, self.bn2 = conv(hidden, out, 1), bn(out)
         self.conv3, self.bn3 = conv(out, out, 1), bn(out)
@@ -68,8 +75,9 @@ class Mlp(nn.Module):
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, group: int = 8,
                  spatial_conv: bool = False, first_bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 drop: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.drop = Dropout(drop)
         if spatial_conv:
             hidden = dim * 5 // 6 if group < 2 else dim * 2
         else:
@@ -80,10 +88,10 @@ class Mlp(nn.Module):
         self.conv3 = Conv(hidden, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = gelu(self.conv1(x))
+        x = self.drop(gelu(self.conv1(x)))
         if self.conv2 is not None:
             x = gelu(self.conv2(x))
-        return self.conv3(x)
+        return self.drop(self.conv3(x))
 
 
 class Attention(nn.Module):
@@ -91,8 +99,11 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, head_dim_ratio: float = 1.0,
                  qkv_bias: bool = False, attn_drop: float = 0.0,
-                 use_pallas: bool = False, dtype: torch.dtype = torch.float32):
+                 proj_drop: float = 0.0, use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.attn_dropout = Dropout(attn_drop)
+        self.proj_dropout = Dropout(proj_drop)
         self.num_heads = num_heads
         self.head_dim = round(dim // num_heads * head_dim_ratio)
         self.scale = self.head_dim ** -0.5
@@ -113,9 +124,9 @@ class Attention(nn.Module):
             out = attention_core(q, k, v, self.scale, use_pallas=True)
         else:
             attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale
-            attn = torch.softmax(attn, dim=-1)
+            attn = self.attn_dropout(torch.softmax(attn, dim=-1))
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-        return self.proj(out.reshape(b, h, w, heads * hd))
+        return self.proj_dropout(self.proj(out.reshape(b, h, w, heads * hd)))
 
 
 class Block(nn.Module):
@@ -126,23 +137,26 @@ class Block(nn.Module):
                  attn_drop: float = 0.0, group: int = 8,
                  attn_disabled: bool = False, spatial_conv: bool = False,
                  fold_bn: bool = False, use_pallas: bool = False,
+                 drop: float = 0.0, drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fold_bn = fold_bn
+        self.drop_path = DropPath(drop_path)
         self.attn = None
         if not attn_disabled:
             if not fold_bn:
                 self.norm1 = BatchNorm(dim, dtype)
             self.attn = Attention(dim, num_heads, head_dim_ratio, qkv_bias or fold_bn,
-                                  attn_drop, use_pallas, dtype)
+                                  attn_drop, drop, use_pallas, dtype)
         if not fold_bn:
             self.norm2 = BatchNorm(dim, dtype)
-        self.mlp = Mlp(dim, mlp_ratio, group, spatial_conv, first_bias=fold_bn, dtype=dtype)
+        self.mlp = Mlp(dim, mlp_ratio, group, spatial_conv, first_bias=fold_bn, drop=drop,
+                       dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.attn is not None:
-            x = x + self.attn(x if self.fold_bn else self.norm1(x))
-        return x + self.mlp(x if self.fold_bn else self.norm2(x))
+            x = x + self.drop_path(self.attn(x if self.fold_bn else self.norm1(x)))
+        return x + self.drop_path(self.mlp(x if self.fold_bn else self.norm2(x)))
 
 
 class PatchEmbed(nn.Module):
@@ -157,6 +171,11 @@ class PatchEmbed(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.proj(x)
         return x if self.norm is None else self.norm(x)
+
+
+def drop_path_ladder(rate: float, total: int) -> list:
+    """Stochastic-depth rate of each of ``total`` blocks: linspace(0, rate, total)."""
+    return [rate * i / max(total - 1, 1) for i in range(total)]
 
 
 class Visformer(nn.Module):
@@ -205,16 +224,20 @@ class Visformer(nn.Module):
             use_pallas_attn=use_pallas_attn, dtype=dtype,
         )
         self.out_dim = embed_dim * 2
+        self.fold_bn = fold_bn
         d1, d2, d3 = depth
         dims = (embed_dim // 2, embed_dim, embed_dim * 2)
         pe_norm = embed_norm and not fold_bn
+        self.drop_path_rates = drop_path_ladder(drop_path_rate, d1 + d2 + d3)
+        self.pos_drop = Dropout(drop_rate)
 
-        def stage(n, s_idx, ratio):
+        def stage(n, s_idx, ratio, first):
             return nn.ModuleList(
                 Block(dims[s_idx], num_heads, ratio, mlp_ratio, qkv_bias,
                       attn_drop_rate, group, attn_stage[s_idx] == "0",
-                      spatial_conv[s_idx] == "1", fold_bn, use_pallas_attn, dtype)
-                for _ in range(n))
+                      spatial_conv[s_idx] == "1", fold_bn, use_pallas_attn,
+                      drop_rate, self.drop_path_rates[first + i], dtype)
+                for i in range(n))
 
         if init_channels is not None:
             self.stem = ConvStem(init_channels, dims[0], fold_bn, dtype)
@@ -223,15 +246,15 @@ class Visformer(nn.Module):
             self.patch_embed1 = PatchEmbed(8, 3, dims[0], pe_norm, dtype)
             size = img_size // 8
         self.pos_embed1 = nn.Parameter(torch.empty(1, dims[0], size, size))
-        self.stage1 = stage(d1, 0, 0.5)
+        self.stage1 = stage(d1, 0, 0.5, 0)
         size //= 2
         self.patch_embed2 = PatchEmbed(2, dims[0], dims[1], pe_norm, dtype)
         self.pos_embed2 = nn.Parameter(torch.empty(1, dims[1], size, size))
-        self.stage2 = stage(d2, 1, 1.0)
+        self.stage2 = stage(d2, 1, 1.0, d1)
         size //= 2
         self.patch_embed3 = PatchEmbed(2, dims[1], dims[2], pe_norm, dtype)
         self.pos_embed3 = nn.Parameter(torch.empty(1, dims[2], size, size))
-        self.stage3 = stage(d3, 2, 1.0)
+        self.stage3 = stage(d3, 2, 1.0, d1 + d2)
         self.norm = BatchNorm(dims[2], dtype)
 
         gen = torch.Generator().manual_seed(seed)
@@ -247,17 +270,21 @@ class Visformer(nn.Module):
         device = next(self.parameters()).device
         return Visformer(**{**self.config, **overrides}, device=device)
 
+    def train(self, mode: bool = True) -> "Visformer":
+        if mode and self.fold_bn:
+            raise ValueError("a fold_bn encoder has no BatchNorm left to train; "
+                             "build it with fold_bn=False for training")
+        return super().train(mode)
+
     def forward(self, x: torch.Tensor):
-        if self.training:
-            raise NotImplementedError("training mode is not ported; call .eval()")
         x = self.stem(x) if hasattr(self, "stem") else self.patch_embed1(x)
-        x = x + self.pos_embed1.permute(0, 2, 3, 1)
+        x = self.pos_drop(x + self.pos_embed1.permute(0, 2, 3, 1))
         for blk in self.stage1:
             x = blk(x)
-        x = self.patch_embed2(x) + self.pos_embed2.permute(0, 2, 3, 1)
+        x = self.pos_drop(self.patch_embed2(x) + self.pos_embed2.permute(0, 2, 3, 1))
         for blk in self.stage2:
             x = blk(x)
-        x = self.patch_embed3(x) + self.pos_embed3.permute(0, 2, 3, 1)
+        x = self.pos_drop(self.patch_embed3(x) + self.pos_embed3.permute(0, 2, 3, 1))
         for blk in self.stage3:
             x = blk(x)
         x = self.norm(x)

@@ -36,6 +36,11 @@ def compute_logits(
     return logits * temp
 
 
+def compute_acc(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Mean top-1 accuracy over every leading axis, a 0-d float32 tensor."""
+    return (torch.argmax(logits, dim=-1) == label).to(torch.float32).mean()
+
+
 def per_episode_acc(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """Accuracy per episode: logits (E, Q, N), label (E, Q) -> (E,) float32.
 

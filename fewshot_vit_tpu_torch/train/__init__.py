@@ -1,2 +1,3 @@
-"""Training-side modules. Only what the SUN-D eval needs is ported so far
-(``meta_tune_emd.make_patch_fn`` / ``make_emd_episode_fn`` for eval)."""
+"""The trainers: phase 3a ``meta_tune`` (SUN-M) and phase 3b ``meta_tune_emd``
+(SUN-D), with the optimizer recipes, train state, step and epoch programs
+they share. Phase 1 (``pretrain``) and phase 2 (``sun``) are not ported yet."""

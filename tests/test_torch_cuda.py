@@ -214,3 +214,60 @@ def test_head_kernel_path_matches_plain(cuda_device):  # noqa: F811
     got = emd_logits(proto, query, solver_impl="pallas")
     assert tks.sinkhorn_pallas.launches == before + 1
     torch.testing.assert_close(got, emd_logits(proto, query), rtol=1e-4, atol=1e-4)
+
+
+def _sund_training_episode(device, solver, images, ratios):
+    """One SUN-D training episode (grid, 3-way 1-shot 2-query) of a narrow
+    DeepEMD on the card: loss and every gradient, from seed-0 weights."""
+    from fewshot_vit_tpu_torch.heads.deepemd import make_deepemd
+    from fewshot_vit_tpu_torch.train.meta_tune_emd import make_emd_episode_fn, make_patch_fn
+
+    way, shot, query = 3, 1, 2
+    head = make_deepemd(encoder_args=dict(SMALL_VISFORMER, use_pallas_attn=True), solver=solver,
+                        device=device, seed=0)
+    fn = make_emd_episode_fn(head, way, shot, query,
+                             make_patch_fn("grid", [2, 3], 2.0, 80, train=True),
+                             (0.5, 0.5, 0.5), (0.25, 0.25, 0.25), sfc=False, train=True)
+    logits = fn(images[None], [0], ratios=ratios)[0].float()
+    loss = torch.nn.functional.cross_entropy(
+        logits, torch.arange(way, device=device).repeat(query))
+    loss.backward()
+    return loss.item(), {k: p.grad for k, p in head.named_parameters()}
+
+
+def test_sund_training_episode_kernel_path_matches_plain(cuda_device):  # noqa: F811
+    """The Sinkhorn kernel where its result feeds a backward pass: loss within
+    1e-4 relative and every gradient within 1e-3 of its own max-abs of the
+    ``sinkhorn_detached`` run from the same weights, images and ratios; one
+    packed-route launch, and no MHSA launch although ``use_pallas_attn`` is
+    on (training attention takes the einsum path)."""
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (9, 80, 80, 3)).astype(np.uint8)).to(cuda_device)
+    ratios = torch.from_numpy(rng.uniform(1, 3, (9, 2)).astype(np.float32)).to(cuda_device)
+    mhsa, packed = tk.fused_mhsa.launches, tks.sinkhorn_pallas.route_launches["packed"]
+    loss_k, grads_k = _sund_training_episode(cuda_device, "sinkhorn_pallas", images, ratios)
+    assert tks.sinkhorn_pallas.route_launches["packed"] == packed + 1
+    loss_p, grads_p = _sund_training_episode(cuda_device, "sinkhorn_detached", images, ratios)
+    assert tks.sinkhorn_pallas.route_launches["packed"] == packed + 1
+    assert tk.fused_mhsa.launches == mhsa
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    for k, g in grads_p.items():
+        assert torch.isfinite(grads_k[k]).all(), k
+        assert (grads_k[k] - g).abs().max().item() <= 1e-3 * g.abs().max().item() + 1e-7, k
+
+
+def test_per_image_grid_patches_on_the_card_match_the_cpu(cuda_device):  # noqa: F811
+    """The batched interpolation matrices are built on the device; same
+    formula, same float32: within 1e-2 on the 0-255 scale of the CPU result
+    (the tolerance of the per-image path against JAX)."""
+    from fewshot_vit_tpu_torch.data.patches import draw_grid_ratios, grid_patches
+
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(0, 256, (16, 80, 80, 3)).astype(np.uint8))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ratios = draw_grid_ratios(gen, 16, 2)
+    assert ratios.device == cuda_device and ratios.min() >= 1 and ratios.max() < 3
+    got = grid_patches(images.to(cuda_device), (2, 3), ratios, 80)
+    want = grid_patches(images, (2, 3), ratios.cpu(), 80)
+    assert got.shape == (16, 13, 80, 80, 3)
+    assert (got.cpu() - want).abs().max().item() <= 1e-2

@@ -54,14 +54,20 @@ def test_grid_patches_match_jax(ratio):
 
 
 def test_training_only_patch_paths_raise():
-    images = torch.zeros(1, 80, 80, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    """Only on malformed input: the train-time paths themselves run (their
+    parity with JAX is in ``tests/test_torch_sund_train.py``)."""
+    images = torch.zeros(2, 80, 80, 3, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="n_levels"):
         tp.grid_patches(images, (2, 3), torch.tensor([[2.0, 2.0]]))
-    for call in (lambda: tp.draw_grid_ratios(None, 1, 2), lambda: tp.sampling_patches(None, images),
-                 lambda: make_patch_fn("grid", [2, 3], 2.0, 80, train=True),
-                 lambda: make_patch_fn("sampling", [2, 3], 2.0, 80, train=False)):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            call()
+    with pytest.raises(ValueError):
+        make_patch_fn("mosaic", [2, 3], 2.0, 80, train=True)
+    gen = torch.Generator().manual_seed(0)
+    assert tp.draw_grid_ratios(gen, 2, 2).shape == (2, 2)
+    assert tp.sampling_patches(gen, images, 3, 16).shape == (2, 3, 16, 16, 3)
+    assert make_patch_fn("grid", [2, 3], 2.0, 40, train=True)(images, gen).shape == (
+        2, 13, 40, 40, 3)
+    assert make_patch_fn("sampling", [2, 3], 2.0, 40, train=False, num_patch=4)(
+        images, gen).shape == (2, 4, 40, 40, 3)
 
 
 def test_weight_vector_matches_jax():
@@ -196,12 +202,19 @@ def test_legacy_solver_aliases_warn_and_resolve(alias, canonical):
 
 
 def test_make_deepemd_registered_and_pretrain_queued():
+    """``n_classes`` is no longer queued: it builds the pretrain ``fc``."""
     head = models.make("deepemd", encoder_args=dict(SMALL_VISFORMER),
                        solver="sinkhorn_pallas", device="cpu")
     assert isinstance(head, td.DeepEMD) and head.solver == "sinkhorn_pallas"
-    assert not head.training
-    with pytest.raises(NotImplementedError, match="training slice"):
-        td.make_deepemd(encoder_args=dict(SMALL_VISFORMER), n_classes=64, device="cpu")
+    assert not head.training and not hasattr(head, "fc")
+    pre = td.make_deepemd(encoder_args=dict(SMALL_VISFORMER), n_classes=64, device="cpu")
+    assert tuple(pre.fc.weight.shape) == (64, 192) and not pre.fc.bias.any()
+    with torch.no_grad():
+        x = torch.from_numpy(_rand(15, 2, 80, 80, 3))
+        assert pre.pre_train(x).shape == (2, 64)
+        torch.testing.assert_close(pre(x), pre.pre_train(x))
+    again = td.make_deepemd(encoder_args=dict(SMALL_VISFORMER), n_classes=64, device="cpu")
+    torch.testing.assert_close(again.fc.weight, pre.fc.weight, rtol=0, atol=0)
 
 
 def test_head_meta_dispatch_counts_no_cpu_launch(heads):

@@ -13,6 +13,7 @@ from fewshot_vit_tpu_torch.data.datasets import synthetic
 from fewshot_vit_tpu_torch.eval import emd_eval, episodic, run, run_emd
 from fewshot_vit_tpu_torch.heads import deepemd, meta_baseline  # noqa: F401  (registers the heads)
 from fewshot_vit_tpu_torch.models.visformer import Visformer
+from fewshot_vit_tpu_torch.train import meta_tune, meta_tune_emd, runner
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fewshot_vit_tpu")
@@ -33,7 +34,10 @@ def _imported_modules(path):
 def test_scan_covers_the_port():
     names = {p.name for p in _port_files()}
     assert {"chip_smoke.py", "visformer.py", "attention.py", "episodic.py", "sinkhorn.py",
-            "deepemd.py", "patches.py", "emd_eval.py", "run_emd.py", "meta_tune_emd.py"} <= names
+            "deepemd.py", "patches.py", "emd_eval.py", "run_emd.py", "meta_tune_emd.py",
+            # the training slice
+            "meta_tune.py", "optim.py", "state.py", "steps.py", "loop.py", "runner.py",
+            "io.py", "staging.py", "augment.py", "log.py", "config.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -70,6 +74,14 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     cfg.write_text("val_dataset: synthetic\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_emd.main(["--config", str(cfg)])
+    # the two trainers: --device defaults to cuda and main raises before any work
+    cfg.write_text("train_dataset: synthetic\n")
+    for trainer in (meta_tune, meta_tune_emd):
+        cfg_, args = runner.parse_args("x", ["--config", str(cfg), "--save-root", str(tmp_path)])
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer.main(cfg_, args)
+    assert not any(p.is_dir() for p in tmp_path.iterdir())  # no run directory was made
 
 
 def test_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys):

@@ -144,8 +144,14 @@ def test_five_shot_with_sfc_runs(setup):
 
 
 def test_sampling_mode_and_placement_are_refused(setup):
+    """``sampling`` now evaluates (random crops seeded per episode), except
+    cached, where it is refused; a wrong placement is refused as before."""
     _, tds, _, _, thead, idx = setup
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _port(tds, thead, idx, "sampling")
+    _, _, accs = _port(tds, thead, idx[:2], "sampling", ep_per_batch=1, num_patch=3)
+    assert accs.shape == (2,) and ((accs >= 0) & (accs <= 1)).all()
+    _, _, again = _port(tds, thead, idx[:2], "sampling", ep_per_batch=1, num_patch=3)
+    np.testing.assert_array_equal(again, accs)  # the crops are seeded
+    with pytest.raises(ValueError, match="cannot be cached"):
+        _port(tds, thead, idx, "sampling", cached=True)
     with pytest.raises(ValueError):
         evaluate_emd(thead, tds, n_episodes=1, device="meta")

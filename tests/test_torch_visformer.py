@@ -93,6 +93,12 @@ def test_load_flax_is_strict(setup):
 
 
 def test_training_mode_raises():
+    """Only for a folded encoder, which has no BN left to train; an unfolded
+    one runs in training mode (``tests/test_torch_train_mode.py``)."""
+    folded = TVisformer(**SMALL_VISFORMER, device="cpu", fold_bn=True)
+    with pytest.raises(ValueError, match="fold_bn"):
+        folded.train()
+    assert not folded.training
     model = TVisformer(**SMALL_VISFORMER, device="cpu").train()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 80, 80, 3))
+    dense, pooled = model(torch.zeros(2, 80, 80, 3))
+    assert dense.shape == (2, 5, 5, 192) and pooled.requires_grad
