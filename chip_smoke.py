@@ -46,7 +46,22 @@ Phases, in order; any failure exits non-zero:
      runs whose losses must be bit-identical;
  10. time both trainers in turns; run both trainer CLIs for two epochs on a
      small synthetic config in a temporary directory, then resume them;
- 11. print the ``training`` and the kernels' JSON lines, then the result line.
+ 11. phase-1 pretraining (``train.loop.make_pretrain_epoch``): the geometry
+     of ``configs/pretrain_mini_visformer.yaml`` (a synthetic split at
+     miniImageNet train geometry, 64 classes x 600 at 84x84, ``protocol:
+     raw``, resident on the card; batch 512, cropaug, AdamW 5e-4 scaled by
+     batch with cosine warmup, drop-path 0.5, ``use_pallas_attn``) in fp32
+     and bf16, then one SAM and one EMA run; no MHSA launch in training; the
+     validation CE epoch and ``fs_eval`` with 2 MHSA launches per forward,
+     on the general route in fp32 and the tensor-core route in bf16;
+ 12. phase-2 SUN (``train.loop.make_sun_epoch``): the teacher assembled from
+     the checkpoint phase 11 saved, the dual view, batch 512, 2 MHSA
+     launches per step (general route with an fp32 teacher, tensor-core
+     route with ``teacher_dtype: bfloat16``); then one step with the
+     kernel teacher against the plain-attention teacher, fp32, TF32 off:
+     soft labels, loss and every gradient;
+ 13. the pretrain -> SUN -> meta-tune CLI chain on a small synthetic config;
+ 14. print the ``training`` and the kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
@@ -95,6 +110,15 @@ SUNM_TRAIN = {"n_train_way": 10, "n_train_shot": 1, "n_train_query": 5, "ep_per_
                                  "milestones": [20, 40, 60, 80]}}
 SUNM_STEPS = {"torch.bfloat16": 10, "torch.float32": 4}
 SUNM_VAL_EPISODES = 64
+# the geometry of configs/pretrain_mini_visformer.yaml and sun_mini_visformer.yaml
+PRE_TRAIN = {"batch_size": 512, "max_epoch": 300, "optimizer": "adamw",
+             "optimizer_args": {"lr": 5e-4, "scale_lr_by_batch": True, "weight_decay": 0.05,
+                                "schedule": "cosine", "warmup_epochs": 5}}
+MINI_TRAIN = {"n_classes": 64, "n_per_class": 600, "image_size": 84, "seed": 5}
+PRE_STEPS = 4               # a counted run of each dtype; the timed runs take as many
+SUN_KW = {"soft_k": 5, "bg_tokens": 10, "token_weight": 0.5}
+SUN_STEPS = 3
+FS_EPISODES = 16            # fs_eval: 2 episode batches of 8 per shot
 
 
 def _fail(msg: str) -> None:
@@ -174,6 +198,8 @@ def _check_mhsa(gen, dev, b_main):
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("stage2", b_main, 6, 100, 42, (f32, bf16)), ("short", b_main, 6, 25, 85, (f32, bf16)),
+             # the SUN teacher's and the pretrain validation's shape: batch 512
+             ("sun teacher", PRE_TRAIN["batch_size"], 6, 100, 42, (f32, bf16)),
              ("long", 64, 4, 512, 128, (f32, bf16)),
              # bf16 only: the tensor-core route's edges
              ("one token", 3, 1, 1, 1, (bf16,)), ("odd", 2, 3, 33, 97, (bf16,)),
@@ -813,12 +839,397 @@ def _run_clis(tag):
                 _fail(f"CLI {name}: its run launched no kernel")
 
 
+def _steps_idx(n, steps, epoch, dev):
+    """The first ``steps`` batches of the pretrain/SUN epoch draw (seed 0)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.train.loop import batch_indices
+
+    idx = batch_indices(n, PRE_TRAIN["batch_size"], rng_mod.np_rng(0, epoch))[:steps]
+    return torch.from_numpy(idx.astype(np.int64)).to(dev)
+
+
+def _expect_routes(label, route, n):
+    """The fused_mhsa launches since the last zeroing: ``n`` on ``route``, none
+    elsewhere, and no Sinkhorn launch."""
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+
+    counts = {"fused_mhsa": dict(fused_mhsa.route_launches),
+              "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
+    want = {"fused_mhsa": {r: (n if r == route else 0) for r in ("general", "tensor_core")},
+            "sinkhorn_pallas": {"general": 0, "packed": 0}}
+    if counts != want:
+        _fail(f"{label}: expected {n} fused_mhsa launches on the {route} route and no other "
+              f"launch, counted {counts}")
+    return counts
+
+
+def _train_pretrain(dev, mini, images_dev, labels_dev, val_ds, fs_ds, fs_images, tag, profile,
+                    card, ckpt_dir):
+    """Phase 11. Returns (training entry, launch counts)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.checkpoint.io import save_variables
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.augment import make_cropaug_fn
+    from fewshot_vit_tpu_torch.heads import classifier as _classifier  # noqa: F401
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train.loop import (
+        batch_indices,
+        eval_metrics,
+        make_eval_ce_epoch,
+        make_pretrain_epoch,
+    )
+    from fewshot_vit_tpu_torch.train.runner import build_optimizer, fs_eval
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    bs = PRE_TRAIN["batch_size"]
+    cropaug = make_cropaug_fn(mini.mean, mini.std, out_size=80)
+
+    def make(dtype, ema=False):
+        model = models.make("classifier", encoder=ENCODER,
+                            encoder_args={"drop_path_rate": 0.5, "use_pallas_attn": True},
+                            classifier_args={"n_classes": mini.n_classes}, dtype=dtype,
+                            device=dev, seed=0)
+        state = TrainState(model, build_optimizer(Config(PRE_TRAIN), model.parameters(), bs),
+                           ema=ema)
+        state.optimizer.set_epoch(6)  # past the warmup
+        return model, state
+
+    def run(state, steps, epoch, **kw):
+        fn = make_pretrain_epoch(cropaug, mini.mean, mini.std, **kw)
+        return fn(state, images_dev, labels_dev, _steps_idx(len(mini), steps, epoch, dev),
+                  (0, epoch))
+
+    vidx = batch_indices(len(val_ds), bs, rng_mod.np_rng(0, 0), drop_last=False)
+    vidx = torch.from_numpy(vidx.astype(np.int64)).to(dev)
+    val_images = torch.from_numpy(val_ds.images).to(dev)
+    val_labels = torch.from_numpy(val_ds.labels.astype(np.int64)).to(dev)
+    eval_fn = make_eval_ce_epoch(mini.mean, mini.std, n_valid=len(val_ds))
+    counts, entry = {}, {"pretrain_peak_gib": {}, "pretrain_losses": {}, "pretrain_val": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        route = "general" if dtype == torch.float32 else "tensor_core"
+        model, state = make(dtype)
+        before = _state_copy(model)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = run(state, PRE_STEPS, 1)["loss"].cpu().numpy()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts[f"pretrain_train_{name}"] = _expect_routes(f"pretrain {name} training", route, 0)
+        print(f"pretrain {name}: {PRE_STEPS} steps of {bs} images (cropaug, drop-path 0.5, "
+              f"{mini.n_classes} classes), losses {losses.tolist()}, {wall:.2f} s with warm-up, "
+              f"peak memory {peak:.2f} GiB; fused_mhsa launches in training 0")
+        if not np.isfinite(losses).all():
+            _fail(f"pretrain {name}: a loss is not finite: {losses}")
+        _check_moved(f"pretrain {name}", model, before, bn_frozen=False)
+
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        vm = eval_metrics(eval_fn(model, val_images, val_labels, vidx))
+        n_ce = 2 * len(vidx)  # 2 stage-2 blocks per validation forward
+        counts[f"pretrain_val_ce_{name}"] = _expect_routes(f"pretrain {name} val CE", route, n_ce)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        fm = fs_eval(model.encoder, fs_ds, n_episodes=FS_EPISODES, images_dev=fs_images)
+        n_fs = 2 * 2 * math.ceil(FS_EPISODES / 8)  # 2 blocks x 2 shots x episode batches
+        counts[f"pretrain_fs_eval_{name}"] = _expect_routes(f"pretrain {name} fs_eval", route, n_fs)
+        print(f"pretrain {name} validation: CE loss {vm['loss']:.4f} acc {vm['acc']:.4f} over "
+              f"{len(val_ds)} images ({len(vidx)} forwards, the last one cycled and masked), "
+              f"fs_eval {fm}; fused_mhsa launches {n_ce} + {n_fs}, all on the {route} route")
+        if not (math.isfinite(vm["loss"]) and 0 <= vm["acc"] <= 1):
+            _fail(f"pretrain {name}: validation CE malformed: {vm}")
+        entry["pretrain_peak_gib"][name] = peak
+        entry["pretrain_losses"][name] = losses.tolist()
+        entry["pretrain_val"][name] = {**vm, **fm}
+        if dtype == torch.float32:  # the teacher of phase 12
+            save_variables(ckpt_dir, model.state_dict(),
+                           {"model": "classifier", "n_classes": mini.n_classes,
+                            "encoder": ENCODER})
+        del model, state
+        torch.cuda.empty_cache()
+
+    # SAM (two passes a step) and EMA, fp32 as the configs run them
+    model, state = make(torch.float32)
+    before = _state_copy(model)
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    sam = run(state, 3, 2, sam_rho=0.05)["loss"].cpu().numpy()
+    sam_s = (time.perf_counter() - t0) / 3
+    _check_moved("pretrain SAM", model, before, bn_frozen=False)
+    model, state = make(torch.float32, ema=True)
+    ema_before = {k: v.clone() for k, v in state.ema_params.items()}
+    ema = run(state, 3, 2, ema_decay=0.9997)["loss"].cpu().numpy()
+    moved = sum(not torch.equal(v, ema_before[k]) for k, v in state.ema_params.items())
+    apart = sum(not torch.equal(v, p) for (k, v), p in
+                zip(state.ema_params.items(), model.parameters()))
+    counts["pretrain_train_sam_ema"] = _expect_routes("pretrain SAM and EMA training", "general", 0)
+    print(f"pretrain fp32 SAM (rho 0.05): 3 steps, losses {sam.tolist()}, {sam_s:.3f} s a step "
+          f"with warm-up; EMA 0.9997: losses {ema.tolist()}, {moved} of {len(ema_before)} "
+          f"shadow tensors moved, {apart} apart from the parameters")
+    if not (np.isfinite(sam).all() and np.isfinite(ema).all()) or moved < len(ema_before) // 2:
+        _fail("pretrain SAM/EMA: a loss is not finite or the EMA shadow did not move")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # timings, in turns
+    rate = {"float32": [], "bfloat16": []}
+    states = {"float32": make(torch.float32)[1], "bfloat16": make(torch.bfloat16)[1]}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        run(states[name], 1, 3)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(states[name], PRE_STEPS, 4)["loss"].cpu()
+        rate[name].append(PRE_STEPS / (time.perf_counter() - t0))
+    print(f"timing {tag}: pretrain steps/s ({bs} images a step, cropaug, {PRE_STEPS} steps a "
+          f"run), fp32 (TF32 off): {rate['float32']}; bf16: {rate['bfloat16']}")
+    if profile:
+        _profile_to(os.path.join(profile, "profile_train_pretrain.txt"), card,
+                    lambda: run(states["float32"], 1, 5)["loss"].cpu())
+    entry["pretrain_steps_per_s"] = rate
+    del states
+    torch.cuda.empty_cache()
+    return entry, counts
+
+
+def _train_sun(dev, mini, images_dev, labels_dev, tag, profile, card, ckpt_dir):
+    """Phase 12. Returns (training entry, launch counts)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.checkpoint.io import load_variables
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.core.rng import torch_generator
+    from fewshot_vit_tpu_torch.data.augment import make_dual_view_fn
+    from fewshot_vit_tpu_torch.heads import token_label as _token_label  # noqa: F401
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train.loop import make_sun_epoch
+    from fewshot_vit_tpu_torch.train.runner import build_optimizer
+    from fewshot_vit_tpu_torch.train.state import TrainState
+    from fewshot_vit_tpu_torch.train.steps import sun_loss, sun_targets
+    from fewshot_vit_tpu_torch.train.sun import assemble_teacher_variables
+
+    bs = PRE_TRAIN["batch_size"]
+    ck, _ = load_variables(ckpt_dir, map_location=dev)
+    dual = make_dual_view_fn(mini.mean, mini.std, out_size=80)
+
+    def token_label(dtype, fused=True, seed=0):
+        m = models.make("token-label", encoder=ENCODER,
+                        encoder_args={"drop_path_rate": 0.5, "use_pallas_attn": fused},
+                        classifier_args={"n_classes": mini.n_classes}, dtype=dtype, device=dev,
+                        seed=seed)
+        return assemble_teacher_variables(m, ck)
+
+    def make(dtype, teacher_dtype):
+        student = token_label(dtype)
+        teacher = token_label(teacher_dtype, seed=1).requires_grad_(False).eval()
+        state = TrainState(student, build_optimizer(Config(PRE_TRAIN), student.parameters(), bs))
+        state.optimizer.set_epoch(6)
+        return student, teacher, state
+
+    epoch_fn = make_sun_epoch(dual, mini.mean, mini.std, **SUN_KW)
+
+    def run(state, teacher, steps, epoch):
+        return epoch_fn(state, teacher, images_dev, labels_dev,
+                        _steps_idx(len(mini), steps, epoch, dev), (0, epoch))
+
+    counts, entry = {}, {"sun_peak_gib": {}, "sun_losses": {}}
+    for teacher_dtype in (torch.float32, torch.bfloat16):
+        name = f"teacher_{str(teacher_dtype).split('.')[1]}"
+        route = "general" if teacher_dtype == torch.float32 else "tensor_core"
+        student, teacher, state = make(torch.float32, teacher_dtype)
+        before, t_before = _state_copy(student), _state_copy(teacher)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ms = run(state, teacher, SUN_STEPS, 1)
+        m = {k: v.cpu().numpy() for k, v in ms.items()}
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts[f"sun_train_{name}"] = _expect_routes(f"SUN {name}", route, 2 * SUN_STEPS)
+        print(f"SUN fp32 student, {name}: {SUN_STEPS} steps of {bs} images (dual view), losses "
+              f"{m['loss'].tolist()} (cls {m['cls_loss'].tolist()}, token "
+              f"{m['token_loss'].tolist()}), {wall:.2f} s with warm-up, peak memory "
+              f"{peak:.2f} GiB; fused_mhsa launches {2 * SUN_STEPS} (2 a step, the teacher's "
+              f"stage-2 blocks), all on the {route} route")
+        if not all(np.isfinite(v).all() for v in m.values()):
+            _fail(f"SUN {name}: a metric is not finite: {m}")
+        _check_moved(f"SUN {name} student", student, before, bn_frozen=False)
+        if any(not torch.equal(v, t_before[k]) for k, v in teacher.state_dict().items()):
+            _fail(f"SUN {name}: the frozen teacher changed")
+        entry["sun_peak_gib"][name] = peak
+        entry["sun_losses"][name] = m["loss"].tolist()
+        del student, teacher, state
+        torch.cuda.empty_cache()
+
+    # the kernel teacher against the plain-attention teacher on one step, fp32
+    # (TF32 off): the same views, student weights and masks
+    student = token_label(torch.float32)
+    kernel_t = token_label(torch.float32, seed=1).requires_grad_(False)
+    plain_t = token_label(torch.float32, fused=False, seed=1).requires_grad_(False)
+    idx = _steps_idx(len(mini), 1, 7, dev)[0]
+    xs, xw = dual(images_dev[idx], torch_generator(dev, 0, 7, 0, 7))
+    labels = labels_dev[idx]
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    soft_k = sun_targets(kernel_t, xw, soft_k=SUN_KW["soft_k"], bg_tokens=SUN_KW["bg_tokens"])
+    _expect_routes("SUN kernel-teacher check", "general", 2)
+    soft_p = sun_targets(plain_t, xw, soft_k=SUN_KW["soft_k"], bg_tokens=SUN_KW["bg_tokens"])
+    _expect_routes("SUN plain-teacher check", "general", 2)
+    differ = float((soft_k != soft_p).any(-1).float().mean())
+    out = {}
+    for which, soft in (("kernel", soft_k), ("plain", soft_p)):
+        student.zero_grad(set_to_none=True)
+        loss = sun_loss(student, xs, labels, soft, (0, 7, 0), SUN_KW["token_weight"])[0]
+        loss.backward()
+        out[which] = (loss.item(), {k: p.grad.clone() for k, p in student.named_parameters()})
+    (loss_k, grads_k), (loss_p, grads_p) = out["kernel"], out["plain"]
+    worst, worst_key = 0.0, None
+    for k, g in grads_p.items():
+        rel = ((grads_k[k] - g).abs().max() / g.abs().max()).item()
+        if not rel <= worst:
+            worst, worst_key = rel, k
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"SUN step fp32 (TF32 off), kernel teacher vs plain-attention teacher: soft labels "
+          f"differ on {differ * 100:.4f}% of {soft_k.shape[0] * soft_k.shape[1]} tokens (limit "
+          f"0.1%); loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel_loss:.2e}, tol 1e-4); worst "
+          f"gradient max|d|/max|g| {worst:.2e} at {worst_key} (tol 1e-3, {len(grads_p)} tensors)")
+    if not (differ <= 1e-3 and rel_loss <= 1e-4 and worst <= 1e-3):
+        _fail("SUN: the kernel teacher and the plain teacher disagree")
+    entry["sun_kernel_vs_plain"] = {"soft_label_share_differing": differ,
+                                    "loss_rel": rel_loss, "worst_grad_rel": worst}
+    del student, kernel_t, plain_t, out, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # timings, in turns: fp32 student and teacher, then bf16 student and teacher
+    rate = {"float32": [], "bfloat16": []}
+    runs = {"float32": make(torch.float32, torch.float32),
+            "bfloat16": make(torch.bfloat16, torch.bfloat16)}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        _, teacher, state = runs[name]
+        run(state, teacher, 1, 3)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state, teacher, SUN_STEPS, 4)["loss"].cpu()
+        rate[name].append(SUN_STEPS / (time.perf_counter() - t0))
+    print(f"timing {tag}: SUN steps/s ({bs} images a step, dual view, {SUN_STEPS} steps a run), "
+          f"fp32 student and teacher (TF32 off): {rate['float32']}; bf16 student and teacher: "
+          f"{rate['bfloat16']}")
+    if profile:
+        _, teacher, state = runs["float32"]
+        _profile_to(os.path.join(profile, "profile_train_sun.txt"), card,
+                    lambda: run(state, teacher, 1, 5)["loss"].cpu())
+    entry["sun_steps_per_s"] = rate
+    del runs
+    torch.cuda.empty_cache()
+    return entry, counts
+
+
+_CLI_CHAIN_DATA = """
+train_dataset: synthetic
+train_dataset_args: {n_classes: 12, n_per_class: 30, image_size: 84}
+fs_dataset: synthetic
+fs_dataset_args: {n_classes: 10, n_per_class: 25, image_size: 80, seed: 3}
+batch_size: 120
+max_epoch: 2
+image_size: 80
+eval_fs_epoch: 1
+eval_fs_episodes: 16
+optimizer: adamw
+optimizer_args: {lr: 5.e-4, weight_decay: 0.05, schedule: cosine, warmup_epochs: 1}
+"""
+_CLI_PRETRAIN = _CLI_CHAIN_DATA + """
+val_dataset: synthetic
+val_dataset_args: {n_classes: 12, n_per_class: 10, image_size: 80, seed: 1}
+model: classifier
+model_args: {encoder: visformer_micro_80,
+             encoder_args: {drop_path_rate: 0.5, use_pallas_attn: true}}
+augment: cropaug
+"""
+_CLI_SUN = _CLI_CHAIN_DATA + """
+model: token-label
+model_args: {encoder: visformer_micro_80,
+             encoder_args: {drop_path_rate: 0.5, use_pallas_attn: true}}
+teacher_dtype: bfloat16
+load: %s
+"""
+_CLI_META = """
+train_dataset: synthetic
+train_dataset_args: {n_classes: 12, n_per_class: 30, image_size: 80}
+val_dataset: synthetic
+val_dataset_args: {n_classes: 10, n_per_class: 25, image_size: 80, seed: 3}
+model: meta-baseline
+model_args: {encoder: visformer_micro_80, encoder_args: {use_pallas_attn: true}}
+load_encoder: %s
+n_way: 5
+n_shot: 1
+n_query: 5
+ep_per_batch: 4
+train_batches: 3
+max_epoch: 1
+optimizer: sgd
+optimizer_args: {lr: 1.e-3, weight_decay: 5.e-4, milestones: [1], gamma: 0.5}
+val_episodes: 16
+"""
+
+
+def _run_cli_chain(tag):
+    """Phase 13: ``train.pretrain`` -> ``train.sun`` (``load:`` its max-va) ->
+    ``train.meta_tune`` (``load_encoder:`` SUN's max-va), through
+    ``parse_args`` + ``main`` on the card in a temporary --save-root."""
+    import tempfile
+
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train import meta_tune, pretrain, sun
+    from fewshot_vit_tpu_torch.train.runner import parse_args
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prev = None
+        for name, module, text in (("pretrain", pretrain, _CLI_PRETRAIN), ("sun", sun, _CLI_SUN),
+                                   ("meta_tune", meta_tune, _CLI_META)):
+            cfg = os.path.join(tmp, f"{name}.yaml")
+            with open(cfg, "w") as f:
+                f.write(text % prev if prev else text)
+            _zero_counts(fused_mhsa, sinkhorn_pallas)
+            t0 = time.perf_counter()
+            state = module.main(*parse_args(f"chip_smoke {name}",
+                                            ["--config", cfg, "--save-root", tmp, "--name", name]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_dir = os.path.join(tmp, name)
+            with open(os.path.join(run_dir, "log.txt")) as f:
+                last = [ln for ln in f.read().splitlines() if ln.startswith("epoch ")][-1]
+            print(f"CLI chain {tag} {name}: {state.step} steps in {wall:.1f} s; "
+                  f"{last}; fused_mhsa launches {dict(fused_mhsa.route_launches)}")
+            prev = os.path.join(run_dir, "max-va")
+            if not os.path.isfile(os.path.join(prev, "arrays.pt")):
+                _fail(f"CLI chain {name}: no max-va checkpoint in {sorted(os.listdir(run_dir))}")
+            if not fused_mhsa.launches:
+                _fail(f"CLI chain {name}: its run launched no fused_mhsa kernel")
+            if name == "sun" and not fused_mhsa.route_launches["tensor_core"]:
+                _fail("CLI chain sun: the bf16 teacher never took the tensor-core route")
+            if "WARNING" in open(os.path.join(run_dir, "log.txt")).read():
+                _fail(f"CLI chain {name}: started from random weights")
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", default=None, help="write a profiler table here")
     args = p.parse_args()
 
     # phase 1
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -949,9 +1360,11 @@ def main() -> int:
           f"general route forced: {eps['old']} "
           f"({N_TIMED} episodes at ep_per_batch {EP_PER_BATCH})")
 
-    kernels = []
-    b, h, t, hd = b_main, 6, 100, 42
-    for dtype in (torch.bfloat16, torch.float32):
+    kernels, sun_teacher = [], {}
+    h, t, hd = 6, 100, 42
+    for shape, b, dtype in (("stage2", b_main, torch.bfloat16), ("stage2", b_main, torch.float32),
+                            ("sun teacher", PRE_TRAIN["batch_size"], torch.float32),
+                            ("sun teacher", PRE_TRAIN["batch_size"], torch.bfloat16)):
         qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
         q, k, v = qkv.unbind(2)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -969,11 +1382,16 @@ def main() -> int:
         ms, prev_ms, lib_ms = (sum(times[w]) / 2 for w in ("new", "old", "sdpa"))
         plain_ms = _time_ms(lambda: fused_mhsa_reference(qt, kt, vt, scale))
         bound_ms, bound_by = _bound(b, h, t, hd, dtype)
-        print(f"timing {tag}: fused_mhsa ({b},{h},{t},{hd}) {dtype}: kernel {ms:.4f} ms "
+        print(f"timing {tag}: fused_mhsa {shape} ({b},{h},{t},{hd}) {dtype}: kernel {ms:.4f} ms "
               f"({route} route; {times['new']}), general route {prev_ms:.4f} ms ({times['old']}), "
               f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({times['sdpa']}), "
               f"bound {bound_ms:.4f} ms ({bound_by}); kernel/bound {ms / bound_ms:.2f}")
-        if dtype == torch.bfloat16:  # the main path's dtype
+        if shape == "sun teacher":  # the SUN teacher's and pretrain validation's shape
+            sun_teacher[str(dtype).split(".")[1]] = {
+                "kernel_route": route, "max_abs_err": errs[(shape, str(dtype))], "ms": ms,
+                "general_route_ms": prev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms}
+        elif dtype == torch.bfloat16:  # the main path's dtype
             if not (ms < lib_ms and ms < prev_ms):
                 _fail(f"the tensor-core fused_mhsa ({ms:.3f} ms) is not faster than sdpa "
                       f"({lib_ms:.3f} ms) and the general route ({prev_ms:.3f} ms)")
@@ -987,6 +1405,7 @@ def main() -> int:
                 "bound_by": bound_by, "library_ms": lib_ms,
             })
         del qkv, q, k, v, qt, kt, vt
+    kernels[0]["sun_teacher"] = {"shape": [PRE_TRAIN["batch_size"] * h, t, hd], **sun_teacher}
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -1015,11 +1434,38 @@ def main() -> int:
     train_launches.update(sunm_launches)
     torch.cuda.empty_cache()
     _run_clis(tag)
+
+    # phases 11-13: pretraining and SUN on a split at miniImageNet train geometry
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    mini = datasets.make("synthetic", **MINI_TRAIN)
+    mini_dev = torch.from_numpy(mini.images).to(dev)
+    mini_labels = torch.from_numpy(mini.labels.astype(np.int64)).to(dev)
+    print(f"dataset: synthetic {mini.images.shape} uint8 ({mini.images.nbytes / 2 ** 20:.0f} MiB) "
+          f"on the card, kept at 84x84 as protocol raw keeps it ({time.perf_counter() - t0:.1f} s)")
+    pre_val = datasets.make("synthetic", n_classes=64, n_per_class=20, image_size=80, seed=6)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "pretrain")
+        pre, pre_counts = _train_pretrain(dev, mini, mini_dev, mini_labels, pre_val, ds,
+                                          images_dev, tag, args.profile, card, ckpt)
+        sun, sun_counts = _train_sun(dev, mini, mini_dev, mini_labels, tag, args.profile, card,
+                                     ckpt)
+    training.update(pre)
+    training.update(sun)
+    train_launches.update(pre_counts)
+    train_launches.update(sun_counts)
+    del mini_dev, mini_labels
+    torch.cuda.empty_cache()
+    _run_cli_chain(tag)
     for entry in kernels:
         entry["train_launches"] = {
             path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
                    else sum(c[entry["name"]].values()))
             for path, c in train_launches.items()}
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training, "card": card}))
 
     print(json.dumps({"kernels": kernels}))

@@ -20,12 +20,17 @@ Ported so far:
   * slice 4, the two meta-tuning trainers: ``train.meta_tune`` (SUN-M) and
     ``train.meta_tune_emd`` (SUN-D, with the Sinkhorn kernel in the training
     forward), training-mode Visformer (batch-statistics BN, dropout,
-    drop-path), optimizer recipes on ``torch.optim``, checkpoints and resume.
+    drop-path), optimizer recipes on ``torch.optim``, checkpoints and resume;
+  * slice 5, the first two training phases: ``train.pretrain`` (teacher CE
+    with the device-side augmentation zoo, SAM, EMA, chunked staging) and
+    ``train.sun`` (SUN meta-training: a frozen token-label teacher, whose
+    stage-2 attention runs through the fused-MHSA kernel in every step,
+    labels the student's patches).
 
 Entry points (``models.make``, ``eval.episodic.evaluate``/``encode_dataset``,
 ``eval.emd_eval.evaluate_emd``, and ``python -m fewshot_vit_tpu_torch.X`` for
-X in ``eval.run``, ``eval.run_emd``, ``train.meta_tune``,
-``train.meta_tune_emd``) run on ``device="cuda"`` unless told
+X in ``eval.run``, ``eval.run_emd``, ``train.pretrain``, ``train.sun``,
+``train.meta_tune``, ``train.meta_tune_emd``) run on ``device="cuda"`` unless told
 ``device="cpu"``; without a card they raise.
 """
 

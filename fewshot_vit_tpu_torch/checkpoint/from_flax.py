@@ -12,8 +12,11 @@ the same keys will load reference ``.pth`` files. Layouts:
   * 2-D positional embedding NHWC (1, H, W, C) -> NCHW (1, C, H, W).
 
 A head's ``encoder`` subtree maps under the ``encoder.`` prefix; the
-MetaBaseline ``temp`` and the DeepEMD pretrain ``fc`` (a plain ``nn.Linear``:
-kernel (I, O) -> weight (O, I)) map at the top level. ``batch_stats`` of an
+MetaBaseline ``temp`` and the DeepEMD pretrain ``fc`` map at the top level,
+the classifiers under their names (``classifier.linear``,
+``classifier_local.linear``, the ``nn-classifier``'s ``classifier.proto`` and
+``classifier.temp``). ``fc`` and ``linear`` are plain ``nn.Linear``s: kernel
+(I, O) -> weight (O, I). ``batch_stats`` of an
 unfolded encoder become the ``running_mean`` / ``running_var`` buffers.
 
 The mapping is a relabelling with transpositions, so it is linear: applied to
@@ -78,7 +81,7 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 def _to_torch_layout(path: Tuple[str, ...], w: np.ndarray) -> np.ndarray:
     name = path[-1]
     if name == "kernel":
-        if w.ndim == 2 and len(path) == 2 and path[0] == "fc":  # head-level nn.Linear
+        if w.ndim == 2 and path[-2] in ("fc", "linear"):  # a head's nn.Linear
             return np.transpose(w, (1, 0))
         if w.ndim == 4:
             return np.transpose(w, (3, 2, 0, 1))

@@ -3,7 +3,8 @@
 
 Every dataset is an ``ArrayDataset``: uint8 images (N, H, W, 3), int32
 labels, ``n_classes``. ``synthetic`` is byte-identical to the JAX package's
-from the same seed; ``mini_imagenet`` reads the reference's pickles.
+from the same seed; ``mini_imagenet`` reads the reference's pickles and
+applies the JAX loader's geometry ``protocol``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..core.registry import datasets
-from .transforms import MEAN, STD, resize_center_crop
+from .transforms import MEAN, STD, resize_center_crop, resize_short
 
 DEFAULT_ROOT = "./materials"
 
@@ -32,15 +33,23 @@ class ArrayDataset:
         return len(self.images)
 
 
-def _resize_crop_all(images: np.ndarray, image_size: int) -> np.ndarray:
-    if images.shape[1] == image_size and images.shape[2] == image_size:
+def apply_geometry(images: np.ndarray, image_size: int, protocol: str) -> np.ndarray:
+    """The load-time geometry of ``protocol``: ``raw`` keeps the native
+    resolution (device-side augmentation does the geometry), ``resize_crop``
+    is Resize(image_size + 8) + CenterCrop(image_size), any other value
+    (``resize_short``) Resize(image_size) of the short side. Images already
+    at (image_size, image_size) are kept."""
+    if protocol == "raw" or images.shape[1:3] == (image_size, image_size):
         return images
     from concurrent.futures import ThreadPoolExecutor
 
+    if protocol == "resize_crop":
+        fn = lambda im: resize_center_crop(im, image_size + 8, image_size)  # noqa: E731
+    else:
+        fn = lambda im: resize_short(im, image_size)  # noqa: E731
     # PIL resize releases the GIL, so threads scale the one-time load
     with ThreadPoolExecutor(max_workers=8) as pool:
-        return np.stack(list(pool.map(
-            lambda im: resize_center_crop(im, image_size + 8, image_size), images)))
+        return np.stack(list(pool.map(fn, images)))
 
 
 @datasets.register("mini-imagenet")
@@ -48,9 +57,11 @@ def mini_imagenet(
     root_path: str = DEFAULT_ROOT,
     split: str = "train",
     image_size: int = 80,
+    protocol: str = "resize_crop",
     **_: object,
 ) -> ArrayDataset:
-    """``miniImageNet_category_split_{split}.pickle`` (train -> train_phase_train)."""
+    """``miniImageNet_category_split_{split}.pickle`` (train -> train_phase_train),
+    under the geometry ``protocol`` (``apply_geometry``)."""
     split_tag = "train_phase_train" if split == "train" else split
     path = os.path.join(root_path, f"miniImageNet_category_split_{split_tag}.pickle")
     with open(path, "rb") as f:
@@ -58,7 +69,7 @@ def mini_imagenet(
     images = np.asarray(pack["data"], np.uint8)
     labels = np.asarray(pack["labels"], np.int64)
     labels = labels - labels.min()
-    images = _resize_crop_all(images, image_size)
+    images = apply_geometry(images, image_size, protocol)
     return ArrayDataset(images, labels.astype(np.int32), int(labels.max()) + 1)
 
 

@@ -1,7 +1,8 @@
 """Image transforms (counterpart: ``fewshot_vit_tpu/data/transforms.py``).
 
 Host side, once at load: the eval geometry Resize(88,88) -> CenterCrop(80)
-with PIL bicubic. Device side, per batch: uint8 -> normalized float.
+or the train-phase Resize(short side), both PIL bicubic. Device side, per
+batch: uint8 -> normalized float.
 """
 
 from __future__ import annotations
@@ -30,3 +31,17 @@ def resize_center_crop(img_np: np.ndarray, resize: int = 88, crop: int = 80) -> 
     im = Image.fromarray(img_np).resize((resize, resize), Image.BICUBIC)
     left = (resize - crop) // 2
     return np.asarray(im.crop((left, left, left + crop, left + crop)), np.uint8)
+
+
+def resize_short(img_np: np.ndarray, size: int = 80) -> np.ndarray:
+    """Host-side Resize(size) of the short side, PIL bicubic (the reference's
+    train-phase default transform; a square input becomes (size, size))."""
+    from PIL import Image
+
+    im = Image.fromarray(img_np)
+    w, h = im.size
+    if w <= h:
+        new = (size, max(1, round(h * size / w)))
+    else:
+        new = (max(1, round(w * size / h)), size)
+    return np.asarray(im.resize(new, Image.BICUBIC), np.uint8)

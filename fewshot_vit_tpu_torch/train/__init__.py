@@ -1,3 +1,4 @@
-"""The trainers: phase 3a ``meta_tune`` (SUN-M) and phase 3b ``meta_tune_emd``
-(SUN-D), with the optimizer recipes, train state, step and epoch programs
-they share. Phase 1 (``pretrain``) and phase 2 (``sun``) are not ported yet."""
+"""The trainers: phase 1 ``pretrain`` (teacher CE), phase 2 ``sun`` (SUN
+meta-training from a frozen teacher), phase 3a ``meta_tune`` (SUN-M) and
+phase 3b ``meta_tune_emd`` (SUN-D), with the optimizer recipes, SAM, train
+state, step and epoch programs they share."""

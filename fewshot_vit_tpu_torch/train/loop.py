@@ -12,7 +12,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..data.transforms import normalize
 from ..ops.episodes import split_shot_query
 from . import steps as steps_mod
 from .state import TrainState
@@ -21,6 +23,59 @@ from .state import TrainState
 def stack_metrics(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     """A list of per-step metric dicts -> one dict of (S,) device tensors."""
     return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def make_pretrain_epoch(preprocess_fn: Optional[Callable] = None, mean=None, std=None,
+                        sam_rho: Optional[float] = None, sam_adaptive: bool = False,
+                        ema_decay: Optional[float] = None, remat: bool = False) -> Callable:
+    """``epoch(state, images u8 (N, H, W, 3), labels (N,), idx (S, B), key) ->
+    metrics`` (dict of (S,) device tensors); step ``i`` draws from
+    (``*key``, i).
+
+    ``sam_rho`` switches the update to Sharpness-Aware Minimization (two
+    forward-backward passes, ``train/sam.py``); ``ema_decay`` keeps the EMA
+    shadow in ``state.ema_params`` (a state built with ``ema=True``)."""
+    kw = {} if mean is None else {"mean": mean, "std": std}
+    if sam_rho:
+        if ema_decay:
+            raise ValueError("ema_decay is not supported with the SAM step")
+        if remat:
+            raise ValueError("remat is not supported with the SAM step")
+        from .sam import make_sam_pretrain_step
+
+        step = make_sam_pretrain_step(float(sam_rho), bool(sam_adaptive), preprocess_fn, **kw)
+    else:
+        step = steps_mod.make_pretrain_step(
+            ema_decay=float(ema_decay) if ema_decay else None, preprocess_fn=preprocess_fn,
+            remat=remat, **kw)
+
+    def epoch(state: TrainState, images: torch.Tensor, labels: torch.Tensor, idx: torch.Tensor,
+              key: Sequence[int]) -> Dict[str, torch.Tensor]:
+        return stack_metrics([step(state, images[idx_b], labels[idx_b], (*key, i))
+                              for i, idx_b in enumerate(idx)])
+
+    return epoch
+
+
+def make_sun_epoch(dual_view_fn: Optional[Callable] = None, mean=None, std=None,
+                   remat: bool = False, **sun_kw) -> Callable:
+    """``epoch(state, teacher, images u8, labels, idx (S, B), key) -> metrics``;
+    ``sun_kw``: ``soft_k``, ``bg_tokens``, ``token_weight``, ``smoothing``."""
+    kw = dict(sun_kw)
+    if mean is not None:
+        kw.update(mean=mean, std=std)
+    step = steps_mod.make_sun_step(dual_view_fn=dual_view_fn, remat=remat, **kw)
+
+    def epoch(state: TrainState, teacher: torch.nn.Module, images: torch.Tensor,
+              labels: torch.Tensor, idx: torch.Tensor,
+              key: Sequence[int]) -> Dict[str, torch.Tensor]:
+        ms = []
+        for i, idx_b in enumerate(idx):
+            imgs = images[idx_b]
+            ms.append(step(state, teacher, imgs, imgs, labels[idx_b], (*key, i)))
+        return stack_metrics(ms)
+
+    return epoch
 
 
 def make_meta_tune_epoch(
@@ -43,6 +98,41 @@ def make_meta_tune_epoch(
         return stack_metrics(ms)
 
     return epoch
+
+
+def make_eval_ce_epoch(mean, std, n_valid: Optional[int] = None) -> Callable:
+    """``epoch(model, images u8, labels, idx (S, B)) -> per-step sums``:
+    ``loss_sum``, ``correct`` and ``n`` (each (S,)), the model in eval mode
+    under ``no_grad``. ``n_valid`` is how many leading slots of the flattened
+    ``idx`` grid are real samples: ``batch_indices(drop_last=False)`` cycles
+    the permutation to fill the last batch, and those repeats are masked so
+    every image counts once. Reduce with ``eval_metrics``."""
+
+    @torch.no_grad()
+    def epoch(model: torch.nn.Module, images: torch.Tensor, labels: torch.Tensor,
+              idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        s, b = idx.shape
+        total = n_valid if n_valid is not None else s * b
+        mask = (torch.arange(s * b, device=idx.device).reshape(s, b) < total).float()
+        model.eval()
+        ms = []
+        for idx_b, m_b in zip(idx, mask):
+            logits = model(normalize(images[idx_b], mean, std))
+            lab = labels[idx_b].long()
+            ce = F.cross_entropy(logits.float(), lab, reduction="none")
+            correct = (torch.argmax(logits, dim=-1) == lab).float()
+            ms.append({"loss_sum": (ce * m_b).sum(), "correct": (correct * m_b).sum(),
+                       "n": m_b.sum()})
+        return stack_metrics(ms)
+
+    return epoch
+
+
+def eval_metrics(ms: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Exact loss and accuracy means from ``make_eval_ce_epoch``'s sums."""
+    n = float(ms["n"].sum().item())
+    return {"loss": float(ms["loss_sum"].sum().item()) / n,
+            "acc": float(ms["correct"].sum().item()) / n}
 
 
 def batch_indices(n: int, batch_size: int, rng: np.random.Generator,

@@ -1,14 +1,15 @@
 """Shared plumbing of the phase runners: config -> dataset / dtype /
-optimizer / encoder checkpoint (counterpart:
+optimizer / encoder checkpoint / few-shot validation (counterpart:
 ``fewshot_vit_tpu/train/runner.py``). Each phase's ``main`` lives in its own
-module (``meta_tune.py``, ``meta_tune_emd.py``) and calls into here.
+module (``pretrain.py``, ``sun.py``, ``meta_tune.py``, ``meta_tune_emd.py``)
+and calls into here.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,6 +50,8 @@ def check_single_device(cfg: Config) -> None:
         if cfg.get(key):
             raise NotImplementedError(f"'{key}:' (multi-device training) {_AUXILIARIES}")
     if cfg.get("visualize_datasets"):
+        # the sample grids of each split and of each augmented training view
+        # (the JAX package's visualize_datasets / visualize_augmented)
         raise NotImplementedError(f"'visualize_datasets: true' (sample-grid PNGs) {_AUXILIARIES}")
 
 
@@ -92,9 +95,9 @@ def build_optimizer(cfg: Config, params: Iterable[nn.Parameter],
     name = cfg.get("optimizer", "sgd")
     oargs = dict(cfg.get("optimizer_args", {}) or {})
     if name == "sam":
-        # SAM is a two-pass step around a base optimizer, which is what is
-        # built here; the SAM step itself (optimizer_args.sam_rho) belongs to
-        # the pretrain loop and comes with the pretrain slice
+        # SAM is a two-pass step (train/sam.py) around a base optimizer,
+        # which is what is built here; the pretrain loop reads sam_rho /
+        # adaptive from optimizer_args to select the SAM step
         name = oargs.get("base", "sgd")
     lr = float(oargs.get("lr", 1e-3))
     if oargs.get("scale_lr_by_batch") and batch_size:
@@ -132,3 +135,49 @@ def load_encoder_from_checkpoint(path: str, encoder: nn.Module) -> nn.Module:
     enc = {k[len("encoder."):]: v for k, v in saved.items() if k.startswith("encoder.")}
     encoder.load_state_dict(enc or saved, strict=True)
     return encoder
+
+
+def fs_eval(encoder: nn.Module, dataset: ArrayDataset, n_episodes: int = 200, way: int = 5,
+            shots=(1, 5), query: int = 15, ep_per_batch: int = 8, seed: int = 0,
+            images_dev: Optional[torch.Tensor] = None) -> Dict[str, float]:
+    """Few-shot validation during training: ``fsa-<shot>`` accuracies of a
+    MetaBaseline at the fixed temperature 10 around ``encoder`` itself (in
+    eval mode; the JAX package assembles the same view's variables in
+    ``fs_head_variables``) on fixed-seed episodes, through
+    ``eval.episodic.evaluate`` on the encoder's device."""
+    from ..eval.episodic import evaluate
+    from ..heads.meta_baseline import MetaBaseline
+
+    head = MetaBaseline(encoder, temp=10.0, temp_learnable=False).eval()
+    device = next(encoder.parameters()).device
+    out = {}
+    for shot in shots:
+        acc, _, _ = evaluate(head, dataset, n_episodes=n_episodes, way=way, shot=shot,
+                             query=query, ep_per_batch=ep_per_batch, seed=seed,
+                             images_dev=images_dev, device=device)
+        out[f"fsa-{shot}"] = acc
+    return out
+
+
+def emd_fs_eval(encoder: nn.Module, dataset: ArrayDataset, n_episodes: int = 200,
+                way: int = 5, shot: int = 1, query: int = 15, mode: str = "fcn",
+                patch_list=(2, 3), num_patch: int = 9, patch_ratio: float = 2.0,
+                seed: int = 0, images_dev: Optional[torch.Tensor] = None) -> Dict[str, float]:
+    """DeepEMD episodic validation during CE pretraining (``eval_emd: true``):
+    a ``DeepEMD`` view of ``encoder`` (default solver) on fixed-seed
+    interleaved episodes, one sampler batch per episode, through
+    ``eval.emd_eval.evaluate_emd`` (8 episodes a batch: their logits do not
+    depend on the grouping); ``emd_acc`` with its Student-t ``emd_ci``, as
+    the JAX package reports them."""
+    from ..eval.emd_eval import evaluate_emd
+    from ..heads.deepemd import DeepEMD
+    from ..ops.metric import mean_confidence_interval
+
+    head = DeepEMD(encoder).eval()
+    _, _, accs = evaluate_emd(
+        head, dataset, way=way, shot=shot, query=query, n_episodes=n_episodes,
+        ep_per_batch=8, mode=mode, patch_list=patch_list, patch_ratio=patch_ratio,
+        image_size=dataset.images.shape[1], num_patch=num_patch, images_dev=images_dev,
+        seed=seed, device=next(encoder.parameters()).device)
+    m, h = mean_confidence_interval(accs)
+    return {"emd_acc": float(m), "emd_ci": float(h)}

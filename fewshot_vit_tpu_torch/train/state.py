@@ -3,7 +3,7 @@ its optimizer, the step count and an optional EMA shadow of the parameters."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +36,13 @@ class TrainState:
         """The module's state dict: parameters and BN running statistics."""
         return self.module.state_dict()
 
+    @property
+    def ema_variables(self) -> Dict[str, torch.Tensor]:
+        """The module's state dict with the EMA shadow in place of the
+        parameters (the BN statistics are the live ones, as in the JAX
+        package)."""
+        return {**self.module.state_dict(), **self.ema_params}
+
     def ema_update(self, decay: float = 0.9997) -> None:
         ema_update(self.ema_params, self.module, decay)
 
@@ -50,6 +57,27 @@ class TrainState:
         self.module.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
-        if self.ema_params is not None:
+        if self.ema_params is not None and "ema_params" in state:
             for name, t in state["ema_params"].items():
                 self.ema_params[name].copy_(t)
+
+
+def resume_train_state(resume_dir: str, state: TrainState,
+                       map_location="cpu") -> Tuple[TrainState, dict, Optional[str]]:
+    """Restore a full-train-state resume checkpoint into ``state``, tolerating
+    an ``ema_decay`` toggled between the save and the restart: a shadow the
+    checkpoint lacks is re-seeded from the loaded parameters, one the state
+    does not want is dropped. Returns ``(state, meta, note)``, ``note`` a log
+    line or None."""
+    from ..checkpoint.io import load_variables
+
+    saved, meta = load_variables(resume_dir, map_location=map_location)
+    state.load_state_dict(saved)
+    note = None
+    if state.ema_params is not None and "ema_params" not in saved:
+        state.ema_params = {n: p.detach().clone() for n, p in state.module.named_parameters()}
+        note = ("resume: checkpoint carries no EMA shadow (ema_decay was "
+                "enabled after the last save) — re-seeded it from the loaded params")
+    elif state.ema_params is None and "ema_params" in saved:
+        note = "resume: dropping the checkpoint's EMA shadow (ema_decay now disabled)"
+    return state, meta, note

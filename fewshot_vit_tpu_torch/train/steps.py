@@ -1,20 +1,169 @@
-"""Per-step training programs (counterpart: ``fewshot_vit_tpu/train/steps.py``).
-Only the Meta-Baseline tuning step is ported so far."""
+"""Per-step training programs (counterpart: ``fewshot_vit_tpu/train/steps.py``):
+
+  * ``make_pretrain_step``: phase 1, CE over all base classes;
+  * ``make_sun_step``: phase 2, student CE plus a weighted soft token-label
+    loss against labels from a frozen teacher;
+  * ``make_meta_tune_step``: phase 3a, Meta-Baseline episodic CE.
+
+A step takes uint8 device batches, an integer ``key`` (seed, epoch, step)
+that seeds its generators (``core.rng.torch_generator``), runs one forward
+in training mode, one backward and one optimizer step, and returns its
+metrics as 0-d device tensors: nothing here waits for the card.
+"""
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..core.rng import torch_generator
 from ..data.transforms import MEAN, STD, normalize
 from ..models.common import draws_from, frozen_bn
 from ..ops.episodes import make_nk_label
 from ..ops.metric import compute_acc
+from ..ops.token_label import generate_soft_label, soft_target_cross_entropy
 from .state import TrainState
+
+
+@contextlib.contextmanager
+def kept_bn_stats(module: nn.Module) -> Iterator[None]:
+    """The BN running statistics as they are on entry are back in place on
+    exit. A second forward over the same batch (SAM's second pass, the
+    recomputation of a checkpointed forward) must not update them again:
+    the JAX package keeps the first pass's statistics."""
+    stats = [b for n, b in module.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    saved = [b.clone() for b in stats]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(stats, saved):
+                b.copy_(v)
+
+
+def train_forward(module: nn.Module, x: torch.Tensor, key: Sequence[int],
+                  remat: bool = False, **kwargs):
+    """``module(x, **kwargs)`` with every dropout and drop-path mask drawn from
+    ``torch_generator(device, *key)``. ``remat=True`` wraps it in
+    ``torch.utils.checkpoint``: the backward recomputes the activations, the
+    generator re-seeded so both passes draw the same masks (the caller keeps
+    the BN statistics of the first pass with ``kept_bn_stats``)."""
+
+    def fwd(x):
+        with draws_from(torch_generator(x.device, *key)):
+            return module(x, **kwargs)
+
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fwd, x, use_reentrant=False, preserve_rng_state=False)
+    return fwd(x)
+
+
+def step_inputs(images_u8: torch.Tensor, key: Sequence[int], preprocess_fn, mean, std):
+    """The augmentation pipeline with its generator (seed, epoch, step, 7), or
+    plain normalization."""
+    if preprocess_fn is not None:
+        return preprocess_fn(images_u8, torch_generator(images_u8.device, *key, 7))
+    return normalize(images_u8, mean, std)
+
+
+def _backward_and_update(state: TrainState, loss: torch.Tensor, remat: bool) -> None:
+    state.optimizer.zero_grad()
+    with kept_bn_stats(state.module) if remat else contextlib.nullcontext():
+        loss.backward()
+    state.optimizer.step()
+    state.step += 1
+
+
+def make_pretrain_step(
+    mean=MEAN, std=STD, ema_decay: Optional[float] = None,
+    preprocess_fn: Optional[Callable] = None, remat: bool = False,
+) -> Callable:
+    """``step(state, images_u8 (B, H, W, 3), labels (B,), key) -> metrics``.
+
+    ``preprocess_fn(images_u8, generator) -> float images`` is the device-side
+    augmentation (default: plain normalization). ``ema_decay`` updates
+    ``state.ema_params`` after each optimizer step. Metrics: ``loss``, ``acc``."""
+
+    def step(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor,
+             key: Sequence[int]) -> Dict[str, torch.Tensor]:
+        x = step_inputs(images_u8, key, preprocess_fn, mean, std)
+        labels = labels.long()
+        state.module.train()
+        logits = train_forward(state.module, x, key, remat)
+        loss = F.cross_entropy(logits.float(), labels)
+        _backward_and_update(state, loss, remat)
+        if state.ema_params is not None and ema_decay:
+            state.ema_update(ema_decay)
+        return {"loss": loss.detach(), "acc": compute_acc(logits.detach(), labels)}
+
+    return step
+
+
+def sun_targets(teacher: nn.Module, x_weak: torch.Tensor, smoothing: float = 0.1,
+                soft_k: int = 5, bg_tokens: int = 10) -> torch.Tensor:
+    """The frozen teacher's soft token labels (B, T, C + 1) for the weak view:
+    the teacher in eval mode under ``no_grad`` (so a ``use_pallas_attn``
+    teacher runs its stage-2 attention through the fused kernel), its dense
+    map through the global classifier, then ``generate_soft_label``."""
+    teacher.eval()
+    with torch.no_grad():
+        y_token, _, _ = teacher(x_weak, is_teacher=True)
+        b, h, w, c = y_token.shape
+        return generate_soft_label(y_token.reshape(b, h * w, c).float(), smoothing,
+                                   soft_k, bg_tokens)
+
+
+def sun_loss(student: nn.Module, x_strong: torch.Tensor, labels: torch.Tensor,
+             soft: torch.Tensor, key: Sequence[int], token_weight: float = 0.5,
+             remat: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The student's training forward on the strong view -> (loss, cls_loss,
+    token_loss, global logits): CE of the global logits plus ``token_weight``
+    times the soft cross-entropy of the (B, T, C + 1) token logits."""
+    student.train()
+    y_token, y, _ = train_forward(student, x_strong, key, remat)
+    cls_loss = F.cross_entropy(y.float(), labels)
+    token_loss = soft_target_cross_entropy(
+        y_token.reshape(y_token.shape[0], -1, y_token.shape[-1]).float(), soft)
+    return cls_loss + token_weight * token_loss, cls_loss, token_loss, y
+
+
+def make_sun_step(
+    soft_k: int = 5, bg_tokens: int = 10, token_weight: float = 0.5,
+    smoothing: float = 0.1, mean=MEAN, std=STD,
+    dual_view_fn: Optional[Callable] = None, remat: bool = False,
+) -> Callable:
+    """``step(state, teacher, strong_u8, weak_u8, labels, key) -> metrics``.
+
+    The teacher (a ``TokenLabel``, frozen) labels the weak view's patches
+    (``sun_targets``); the student in ``state`` learns from the strong view
+    (``sun_loss``). ``dual_view_fn(images_u8, generator) -> (strong, weak)``
+    is the device-side location-aware dual augmentation; with it, pass the
+    SAME batch as ``strong_u8`` and ``weak_u8``. Metrics: ``loss``,
+    ``cls_loss``, ``token_loss``, ``acc``."""
+
+    def step(state: TrainState, teacher: nn.Module, strong_u8: torch.Tensor,
+             weak_u8: torch.Tensor, labels: torch.Tensor,
+             key: Sequence[int]) -> Dict[str, torch.Tensor]:
+        if dual_view_fn is not None:
+            xs, xw = dual_view_fn(strong_u8, torch_generator(strong_u8.device, *key, 7))
+        else:
+            xs, xw = normalize(strong_u8, mean, std), normalize(weak_u8, mean, std)
+        labels = labels.long()
+        soft = sun_targets(teacher, xw, smoothing, soft_k, bg_tokens)
+        loss, cls_loss, token_loss, y = sun_loss(state.module, xs, labels, soft, key,
+                                                 token_weight, remat)
+        _backward_and_update(state, loss, remat)
+        return {"loss": loss.detach(), "cls_loss": cls_loss.detach(),
+                "token_loss": token_loss.detach(), "acc": compute_acc(y.detach(), labels)}
+
+    return step
 
 
 def make_meta_tune_step(

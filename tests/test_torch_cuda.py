@@ -271,3 +271,73 @@ def test_per_image_grid_patches_on_the_card_match_the_cpu(cuda_device):  # noqa:
     want = grid_patches(images, (2, 3), ratios.cpu(), 80)
     assert got.shape == (16, 13, 80, 80, 3)
     assert (got.cpu() - want).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_soft_labels_on_the_card_match_the_cpu(cuda_device, kind):  # noqa: F811
+    """The stable sort breaks ties toward the lower index on the card too:
+    bit-identical to the CPU labels, integer-valued (tied) logits included."""
+    from fewshot_vit_tpu_torch.ops.token_label import generate_soft_label
+
+    rng = np.random.default_rng(0)
+    x = (rng.normal(0, 2, (64, 25, 64)) if kind == "normal"
+         else rng.integers(-2, 3, (64, 25, 64))).astype(np.float32)
+    want = generate_soft_label(torch.from_numpy(x))
+    got = generate_soft_label(torch.from_numpy(x).to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_augmentation_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
+    """Every op with the same injected draws: pixel ops within 1e-4 (the
+    integer-valued ones exactly), the shift-based geometric ops within 1e-3."""
+    from fewshot_vit_tpu_torch.data import augment as ta
+
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0, 255, (6, 24, 24, 3))
+                         .astype(np.float32))
+    mag = torch.tensor([0.0, 3.3, 9.0, 9.6, 10.0, 7.2])
+    sign = torch.tensor([1.0, -1, 1, -1, -1, 1])
+    for op, name in enumerate(ta.RA_OPS):
+        want = ta.ra_apply(op, x, mag, sign)
+        got = ta.ra_apply(op, x.to(cuda_device), mag.to(cuda_device), sign.to(cuda_device)).cpu()
+        exact = name in ("Equalize", "Posterize", "Solarize", "Invert")
+        torch.testing.assert_close(got, want, rtol=0, atol=0 if exact else 1e-3, msg=name)
+    sigma = torch.tensor([0.1, 0.5, 1.0, 1.5, 1.99, 0.3])
+    apply = torch.ones(6, dtype=torch.bool)
+    torch.testing.assert_close(
+        ta.gaussian_blur(None, x.to(cuda_device), apply=apply, sigma=sigma).cpu(),
+        ta.gaussian_blur(None, x, apply=apply, sigma=sigma), rtol=0, atol=1e-4)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    u8 = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (8, 28, 28, 3))
+                          .astype(np.uint8)).to(cuda_device)
+    strong, weak = ta.make_dual_view_fn(out_size=24)(u8, g)
+    assert strong.shape == weak.shape == (8, 24, 24, 3) and strong.is_cuda
+    assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
+
+
+@pytest.mark.parametrize("teacher_dtype,route", [(torch.float32, "general"),
+                                                 (torch.bfloat16, "tensor_core")])
+def test_sun_step_teacher_launches_the_kernel(cuda_device, teacher_dtype, route):  # noqa: F811
+    """One SUN step on the card: the frozen teacher's stage-2 attention goes
+    through the kernel (one launch per block, on the route of its dtype), the
+    training-mode student's does not."""
+    from fewshot_vit_tpu_torch.heads.token_label import TokenLabel
+    from fewshot_vit_tpu_torch.train.optim import make_optimizer
+    from fewshot_vit_tpu_torch.train.state import TrainState
+    from fewshot_vit_tpu_torch.train.steps import make_sun_step
+
+    def model(dtype):
+        enc = Visformer(**SMALL_VISFORMER, use_pallas_attn=True, dtype=dtype, device=cuda_device)
+        return TokenLabel(enc, 6, dtype).to(cuda_device)
+
+    student, teacher = model(torch.float32), model(teacher_dtype).requires_grad_(False)
+    state = TrainState(student, make_optimizer(student.parameters(), "sgd", lr=1e-2))
+    imgs = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (8, 80, 80, 3))
+                            .astype(np.uint8)).to(cuda_device)
+    labels = torch.arange(8, device=cuda_device) % 6
+    before = dict(tk.fused_mhsa.route_launches)
+    m = make_sun_step()(state, teacher, imgs, imgs, labels, (0, 1, 0))
+    after = tk.fused_mhsa.route_launches
+    n = len(teacher.encoder.stage2)
+    assert {r: after[r] - before[r] for r in after} == {
+        r: (n if r == route else 0) for r in after}
+    assert all(torch.isfinite(v) for v in m.values())

@@ -48,3 +48,26 @@ def test_normalize_matches(pair):
     got = tnormalize(torch.from_numpy(jd.images[:7])).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)  # fp32 rounding only
+
+
+@pytest.mark.parametrize("protocol", ["resize_crop", "raw", "resize_short"])
+def test_mini_imagenet_protocols_match_jax(tmp_path, protocol):
+    """A fake 84x84 miniImageNet pickle: ``raw`` keeps the native images for
+    the device-side crop, the two resizing protocols give the JAX loader's
+    bytes."""
+    import pickle
+
+    rng = np.random.default_rng(0)
+    pack = {"data": rng.integers(0, 256, (6, 84, 84, 3), dtype=np.uint8),
+            "labels": [3, 3, 4, 4, 5, 5]}
+    with open(tmp_path / "miniImageNet_category_split_train_phase_train.pickle", "wb") as f:
+        pickle.dump(pack, f)
+    kw = dict(root_path=str(tmp_path), split="train", image_size=80, protocol=protocol)
+    want, got = jdatasets.mini_imagenet(**kw), tdatasets.mini_imagenet(**kw)
+    side = 84 if protocol == "raw" else 80
+    assert got.images.shape == (6, side, side, 3) and got.images.dtype == np.uint8
+    np.testing.assert_array_equal(got.images, want.images)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert got.n_classes == want.n_classes == 3
+    if protocol == "raw":
+        np.testing.assert_array_equal(got.images, pack["data"])

@@ -11,9 +11,9 @@ import torch
 from fewshot_vit_tpu_torch.core.registry import models
 from fewshot_vit_tpu_torch.data.datasets import synthetic
 from fewshot_vit_tpu_torch.eval import emd_eval, episodic, run, run_emd
-from fewshot_vit_tpu_torch.heads import deepemd, meta_baseline  # noqa: F401  (registers the heads)
+from fewshot_vit_tpu_torch.heads import classifier, deepemd, meta_baseline, token_label
 from fewshot_vit_tpu_torch.models.visformer import Visformer
-from fewshot_vit_tpu_torch.train import meta_tune, meta_tune_emd, runner
+from fewshot_vit_tpu_torch.train import meta_tune, meta_tune_emd, pretrain, runner, sun
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fewshot_vit_tpu")
@@ -37,7 +37,10 @@ def test_scan_covers_the_port():
             "deepemd.py", "patches.py", "emd_eval.py", "run_emd.py", "meta_tune_emd.py",
             # the training slice
             "meta_tune.py", "optim.py", "state.py", "steps.py", "loop.py", "runner.py",
-            "io.py", "staging.py", "augment.py", "log.py", "config.py"} <= names
+            "io.py", "staging.py", "augment.py", "log.py", "config.py",
+            # the pretrain and SUN slice
+            "pretrain.py", "sun.py", "sam.py", "classifier.py", "token_label.py"} <= names
+    assert len([p for p in _port_files() if p.name == "token_label.py"]) == 2  # ops and heads
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -76,7 +79,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         run_emd.main(["--config", str(cfg)])
     # the two trainers: --device defaults to cuda and main raises before any work
     cfg.write_text("train_dataset: synthetic\n")
-    for trainer in (meta_tune, meta_tune_emd):
+    for trainer in (meta_tune, meta_tune_emd, pretrain, sun):
         cfg_, args = runner.parse_args("x", ["--config", str(cfg), "--save-root", str(tmp_path)])
         assert args.device == "cuda"
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -123,6 +126,7 @@ def test_entry_points_default_to_cuda():
 
     for fn in (episodic.evaluate, episodic.encode_dataset, episodic.evaluate_cached,
                meta_baseline.make_meta_baseline, deepemd.make_deepemd,
-               emd_eval.evaluate_emd):
+               emd_eval.evaluate_emd, classifier.make_classifier,
+               token_label.make_token_label):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert inspect.signature(Visformer).parameters["device"].default == "cuda"
