@@ -60,8 +60,27 @@ Phases, in order; any failure exits non-zero:
      route with ``teacher_dtype: bfloat16``); then one step with the
      kernel teacher against the plain-attention teacher, fp32, TF32 off:
      soft labels, loss and every gradient;
- 13. the pretrain -> SUN -> meta-tune CLI chain on a small synthetic config;
- 14. print the ``training`` and the kernels' JSON lines, then the result line.
+ 13. the pretrain -> SUN -> meta-tune CLI chain on a small synthetic config,
+     closed by both eval CLIs: ``eval.run`` with ``load:`` on meta-tune's
+     ``max-va``, ``eval.run_emd`` (``sinkhorn_pallas``, grid) with
+     ``load_encoder:`` on SUN's; no random-weights warning, both kernels
+     launched;
+ 14. the eval CLI from a reference-format ``.pth`` (``model_sd`` with
+     ``num_batches_tracked`` buffers, and SUN-D's ``params`` / ``module.``
+     layout) of a seeded MetaBaseline at full width: the loaded state dict
+     equals the source tensor for tensor; ``--fold-bn --bf16`` over 2000
+     episodes of the 20 x 600 split prints the accuracy that in-process
+     ``evaluate`` gives on the same episodes, with 2 MHSA launches per
+     8-episode batch on the tensor-core route; fp32 takes the general route;
+ 15. ``--sauc``, 2000 2-way episodes in bf16 (launches counted), and the fp32
+     kernel path against the plain-attention path (mean |dAUC| <= 0.005);
+ 16. the new loaders: a tiered-ImageNet-format split (160 test classes x 100
+     images at 84x84, ``resize_crop`` to 80) and a CIFAR-FS-format split (20
+     classes x 600 PNGs at 32x32, resized to 80, CIFAR stats), each scored by
+     ``eval.run`` from the ``.pth``; without PIL on the machine, the tiered
+     split at 80x80 and ``protocol: raw`` only, and the script says so;
+ 17. print the ``training``, ``eval_clis`` and kernels' JSON lines, then the
+     result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
@@ -119,6 +138,15 @@ PRE_STEPS = 4               # a counted run of each dtype; the timed runs take a
 SUN_KW = {"soft_k": 5, "bg_tokens": 10, "token_weight": 0.5}
 SUN_STEPS = 3
 FS_EPISODES = 16            # fs_eval: 2 episode batches of 8 per shot
+CLI_EPISODES = 2000         # the eval CLI's default protocol, 8 episodes a batch
+CLI_EP_PER_BATCH = 8
+CLI_FP32_EPISODES = 400
+CHAIN_EVAL_EPISODES = 200
+LOADER_EPISODES = 1000
+# tiered-ImageNet's test split has 160 classes (about 1,300 images each: cut to
+# 100 here); CIFAR-FS's test split is 20 classes x 600 images at 32x32
+TIERED_TEST = {"n_classes": 160, "n_per_class": 100, "seed": 7}
+CIFAR_TEST = {"n_classes": 20, "n_per_class": 600, "image_size": 32, "seed": 8}
 
 
 def _fail(msg: str) -> None:
@@ -851,19 +879,19 @@ def _steps_idx(n, steps, epoch, dev):
     return torch.from_numpy(idx.astype(np.int64)).to(dev)
 
 
-def _expect_routes(label, route, n):
-    """The fused_mhsa launches since the last zeroing: ``n`` on ``route``, none
-    elsewhere, and no Sinkhorn launch."""
+def _expect_counts(label, mhsa_route, n_mhsa, n_sinkhorn=0):
+    """The launches since the last zeroing: ``n_mhsa`` fused-MHSA launches
+    on ``mhsa_route``, ``n_sinkhorn`` packed Sinkhorn launches, no other."""
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
     from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
 
     counts = {"fused_mhsa": dict(fused_mhsa.route_launches),
               "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
-    want = {"fused_mhsa": {r: (n if r == route else 0) for r in ("general", "tensor_core")},
-            "sinkhorn_pallas": {"general": 0, "packed": 0}}
+    want = {"fused_mhsa": {r: (n_mhsa if r == mhsa_route else 0)
+                           for r in ("general", "tensor_core")},
+            "sinkhorn_pallas": {"general": 0, "packed": n_sinkhorn}}
     if counts != want:
-        _fail(f"{label}: expected {n} fused_mhsa launches on the {route} route and no other "
-              f"launch, counted {counts}")
+        _fail(f"{label}: expected launches {want}, counted {counts}")
     return counts
 
 
@@ -925,7 +953,7 @@ def _train_pretrain(dev, mini, images_dev, labels_dev, val_ds, fs_ds, fs_images,
         losses = run(state, PRE_STEPS, 1)["loss"].cpu().numpy()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        counts[f"pretrain_train_{name}"] = _expect_routes(f"pretrain {name} training", route, 0)
+        counts[f"pretrain_train_{name}"] = _expect_counts(f"pretrain {name} training", route, 0)
         print(f"pretrain {name}: {PRE_STEPS} steps of {bs} images (cropaug, drop-path 0.5, "
               f"{mini.n_classes} classes), losses {losses.tolist()}, {wall:.2f} s with warm-up, "
               f"peak memory {peak:.2f} GiB; fused_mhsa launches in training 0")
@@ -936,11 +964,11 @@ def _train_pretrain(dev, mini, images_dev, labels_dev, val_ds, fs_ds, fs_images,
         _zero_counts(fused_mhsa, sinkhorn_pallas)
         vm = eval_metrics(eval_fn(model, val_images, val_labels, vidx))
         n_ce = 2 * len(vidx)  # 2 stage-2 blocks per validation forward
-        counts[f"pretrain_val_ce_{name}"] = _expect_routes(f"pretrain {name} val CE", route, n_ce)
+        counts[f"pretrain_val_ce_{name}"] = _expect_counts(f"pretrain {name} val CE", route, n_ce)
         _zero_counts(fused_mhsa, sinkhorn_pallas)
         fm = fs_eval(model.encoder, fs_ds, n_episodes=FS_EPISODES, images_dev=fs_images)
         n_fs = 2 * 2 * math.ceil(FS_EPISODES / 8)  # 2 blocks x 2 shots x episode batches
-        counts[f"pretrain_fs_eval_{name}"] = _expect_routes(f"pretrain {name} fs_eval", route, n_fs)
+        counts[f"pretrain_fs_eval_{name}"] = _expect_counts(f"pretrain {name} fs_eval", route, n_fs)
         print(f"pretrain {name} validation: CE loss {vm['loss']:.4f} acc {vm['acc']:.4f} over "
               f"{len(val_ds)} images ({len(vidx)} forwards, the last one cycled and masked), "
               f"fs_eval {fm}; fused_mhsa launches {n_ce} + {n_fs}, all on the {route} route")
@@ -970,7 +998,7 @@ def _train_pretrain(dev, mini, images_dev, labels_dev, val_ds, fs_ds, fs_images,
     moved = sum(not torch.equal(v, ema_before[k]) for k, v in state.ema_params.items())
     apart = sum(not torch.equal(v, p) for (k, v), p in
                 zip(state.ema_params.items(), model.parameters()))
-    counts["pretrain_train_sam_ema"] = _expect_routes("pretrain SAM and EMA training", "general", 0)
+    counts["pretrain_train_sam_ema"] = _expect_counts("pretrain SAM and EMA training", "general", 0)
     print(f"pretrain fp32 SAM (rho 0.05): 3 steps, losses {sam.tolist()}, {sam_s:.3f} s a step "
           f"with warm-up; EMA 0.9997: losses {ema.tolist()}, {moved} of {len(ema_before)} "
           f"shadow tensors moved, {apart} apart from the parameters")
@@ -1055,7 +1083,7 @@ def _train_sun(dev, mini, images_dev, labels_dev, tag, profile, card, ckpt_dir):
         m = {k: v.cpu().numpy() for k, v in ms.items()}
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        counts[f"sun_train_{name}"] = _expect_routes(f"SUN {name}", route, 2 * SUN_STEPS)
+        counts[f"sun_train_{name}"] = _expect_counts(f"SUN {name}", route, 2 * SUN_STEPS)
         print(f"SUN fp32 student, {name}: {SUN_STEPS} steps of {bs} images (dual view), losses "
               f"{m['loss'].tolist()} (cls {m['cls_loss'].tolist()}, token "
               f"{m['token_loss'].tolist()}), {wall:.2f} s with warm-up, peak memory "
@@ -1081,9 +1109,9 @@ def _train_sun(dev, mini, images_dev, labels_dev, tag, profile, card, ckpt_dir):
     labels = labels_dev[idx]
     _zero_counts(fused_mhsa, sinkhorn_pallas)
     soft_k = sun_targets(kernel_t, xw, soft_k=SUN_KW["soft_k"], bg_tokens=SUN_KW["bg_tokens"])
-    _expect_routes("SUN kernel-teacher check", "general", 2)
+    _expect_counts("SUN kernel-teacher check", "general", 2)
     soft_p = sun_targets(plain_t, xw, soft_k=SUN_KW["soft_k"], bg_tokens=SUN_KW["bg_tokens"])
-    _expect_routes("SUN plain-teacher check", "general", 2)
+    _expect_counts("SUN plain-teacher check", "general", 2)
     differ = float((soft_k != soft_p).any(-1).float().mean())
     out = {}
     for which, soft in (("kernel", soft_k), ("plain", soft_p)):
@@ -1181,10 +1209,82 @@ val_episodes: 16
 """
 
 
-def _run_cli_chain(tag):
+def _cli(module, argv):
+    """``module.main(argv)`` with its standard output captured and echoed;
+    returns (main's result, the text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = module.main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    return out, text
+
+
+def _write_cfg(tmp, name, data):
+    from fewshot_vit_tpu_torch.core.config import Config
+
+    path = os.path.join(tmp, f"{name}.yaml")
+    Config(data).dump_yaml(path)
+    return path
+
+
+def _mhsa_per_forward() -> int:
+    """Fused-MHSA launches per encoder forward: one per stage-2 block (T =
+    100); stage 3 (T = 25) stays on the einsum path."""
+    from fewshot_vit_tpu_torch.models.visformer import _VARIANTS
+
+    return _VARIANTS[ENCODER]["depth"][1]
+
+
+def _close_chain(tmp, tag, dev):
+    """Phase 13's end: both eval CLIs score the chain's checkpoints."""
+    import torch
+
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval import run_emd
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+
+    fs = {"n_classes": 10, "n_per_class": 25, "image_size": 80, "seed": 3}
+    enc = {"encoder": ENCODER, "encoder_args": {"use_pallas_attn": True}}
+    run_cfg = _write_cfg(tmp, "eval_chain", {
+        "dataset": "synthetic", "dataset_args": fs, "encoder": ENCODER, "model_args": enc,
+        "load": os.path.join(tmp, "meta_tune", "max-va")})
+    emd_cfg = _write_cfg(tmp, "eval_emd_chain", {
+        "val_dataset": "synthetic", "val_dataset_args": fs, "deepemd": "grid",
+        "solver": "sinkhorn_pallas", "model_args": enc,
+        "load_encoder": os.path.join(tmp, "sun", "max-va")})
+    n_batches = math.ceil(CHAIN_EVAL_EPISODES / CLI_EP_PER_BATCH)
+    out = {}
+    for label, module, argv, n_sk in (
+            ("eval.run load: meta_tune/max-va", eval_run, ["--config", run_cfg], 0),
+            ("eval.run_emd load_encoder: sun/max-va", run_emd,
+             ["--config", emd_cfg, "--ep-per-batch", str(CLI_EP_PER_BATCH)], n_batches)):
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        accs, text = _cli(module, argv + ["--episodes", str(CHAIN_EVAL_EPISODES), "--bf16",
+                                          "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if "WARNING" in text:
+            _fail(f"CLI chain {label}: scored random weights")
+        if accs.shape != (CHAIN_EVAL_EPISODES,) or not ((accs >= 0) & (accs <= 1)).all():
+            _fail(f"CLI chain {label}: episode accuracies malformed: shape {accs.shape}")
+        out[label] = _expect_counts(f"CLI chain {label}", "tensor_core",
+                                    _mhsa_per_forward() * n_batches, n_sk)
+        print(f"CLI chain {tag} {label}: {CHAIN_EVAL_EPISODES} episodes bf16 in {wall:.1f} s, "
+              f"launches {out[label]}")
+    return out
+
+
+def _run_cli_chain(tag, dev):
     """Phase 13: ``train.pretrain`` -> ``train.sun`` (``load:`` its max-va) ->
     ``train.meta_tune`` (``load_encoder:`` SUN's max-va), through
-    ``parse_args`` + ``main`` on the card in a temporary --save-root."""
+    ``parse_args`` + ``main`` on the card in a temporary --save-root; then
+    both eval CLIs score the result. Returns the eval CLIs' launch counts."""
     import tempfile
 
     import torch
@@ -1221,6 +1321,257 @@ def _run_cli_chain(tag):
                 _fail("CLI chain sun: the bf16 teacher never took the tensor-core route")
             if "WARNING" in open(os.path.join(run_dir, "log.txt")).read():
                 _fail(f"CLI chain {name}: started from random weights")
+        return _close_chain(tmp, tag, dev)
+
+
+def _eval_from_pth(dev, tmp, tag):
+    """Phases 14 and 15. Returns (entry, launch counts per path, the .pth)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets, models
+    from fewshot_vit_tpu_torch.core.rng import DEFAULT_SEED
+    from fewshot_vit_tpu_torch.data.staging import upload_images
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval.episodic import evaluate
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
+
+    # a seeded head with non-trivial BN statistics and temperature, so a
+    # load that dropped any of them would show, written as the reference does
+    src = models.make("meta-baseline", encoder=ENCODER, encoder_args={"use_pallas_attn": True},
+                      device=dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        for name, buf in src.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0.0, 0.1, generator=gen)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 2.0, generator=gen)
+        src.temp.fill_(12.5)
+    sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    del src
+    tracked = {k[: -len("running_mean")] + "num_batches_tracked": torch.tensor(300)
+               for k in sd if k.endswith("running_mean")}
+    pth = os.path.join(tmp, "max-va.pth")
+    torch.save({"model": "meta-baseline", "model_args": {"encoder": ENCODER},
+                "model_sd": {**sd, **tracked}}, pth)
+    sund_pth = os.path.join(tmp, "max_acc.pth")
+    torch.save({"params": {"module." + k: v for k, v in sd.items()}}, sund_pth)
+    data = {"n_classes": 20, "n_per_class": 600, "image_size": 80, "seed": 0}
+    cfg = {"dataset": "synthetic", "dataset_args": data, "encoder": ENCODER,
+           "model_args": {"encoder_args": {"use_pallas_attn": True}}, "load": pth}
+    cfg_sund = dict(cfg, load=sund_pth)
+    for label, c, dtype in (("model_sd + num_batches_tracked", cfg, torch.bfloat16),
+                            ("SUN-D params + module.", cfg_sund, torch.float32)):
+        got = eval_run.load_model_for_eval(Config(c), dtype, dev).state_dict()
+        if sorted(got) != sorted(sd) or not all(torch.equal(got[k].cpu(), v)
+                                                for k, v in sd.items()):
+            _fail(f"the state dict loaded from the {label} .pth differs from the source")
+    print(f"eval CLI: both .pth layouts ({len(sd)} tensors, {len(tracked)} num_batches_tracked "
+          f"buffers dropped) load into the source state dict, tensor for tensor")
+
+    ds = datasets.make("synthetic", **data)
+    images_dev = upload_images(ds.images, dev)
+    path = _write_cfg(tmp, "eval_pth", cfg)
+    n_batches = math.ceil(CLI_EPISODES / CLI_EP_PER_BATCH)
+    counts, entry = {}, {}
+
+    # phase 14: --fold-bn --bf16, 2000 episodes, against in-process evaluate
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    accs, text = _cli(eval_run, ["--config", path, "--episodes", str(CLI_EPISODES), "--fold-bn",
+                                 "--bf16", "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per = _mhsa_per_forward()
+    counts["eval_cli_pth_bf16"] = _expect_counts("eval CLI from .pth, bf16", "tensor_core",
+                                                 per * n_batches)
+    head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, h, want = evaluate(head, ds, n_episodes=CLI_EPISODES, ep_per_batch=CLI_EP_PER_BATCH,
+                          seed=DEFAULT_SEED, images_dev=images_dev, device=dev)
+    eps = CLI_EPISODES / (time.perf_counter() - t0)
+    line = f"test epoch 1: acc={m * 100:.2f} +- {h * 100:.2f} (%)"
+    print(f"eval CLI {tag} load: .pth, --fold-bn --bf16, {CLI_EPISODES} episodes: wall "
+          f"{wall:.2f} s (dataset, model, load, fold, upload, eval); in-process evaluate of the "
+          f"same head and episodes: {eps:.1f} episodes/s, '{line}'; launches "
+          f"{counts['eval_cli_pth_bf16']}")
+    if line not in text or not np.array_equal(accs, want):
+        _fail("the eval CLI from .pth and in-process evaluate disagree")
+    entry.update({"cli_pth_bf16_wall_s": wall, "evaluate_epb8_bf16_episodes_per_s": eps,
+                  "cli_pth_bf16_acc": m})
+
+    path32 = _write_cfg(tmp, "eval_sund_pth", cfg_sund)
+    n32 = math.ceil(CLI_FP32_EPISODES / CLI_EP_PER_BATCH)
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    _cli(eval_run, ["--config", path32, "--episodes", str(CLI_FP32_EPISODES), "--fold-bn",
+                    "--device", str(dev)])
+    torch.cuda.synchronize()
+    counts["eval_cli_sund_pth_fp32"] = _expect_counts("eval CLI from the SUN-D .pth, fp32",
+                                                      "general", per * n32)
+    print(f"eval CLI {tag} load: SUN-D .pth, --fold-bn fp32 (TF32 off), {CLI_FP32_EPISODES} "
+          f"episodes: wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{counts['eval_cli_sund_pth_fp32']}")
+
+    # phase 15: --sauc, on synthetic-local: an untrained encoder ranks its
+    # queries far from perfectly there, so per-episode AUCs spread and the
+    # kernel path against the plain path is a real comparison (on the easy
+    # synthetic split both saturate at 1)
+    del head, images_dev
+    cfg = dict(cfg, dataset="synthetic-local")
+    ds = datasets.make("synthetic-local", **data)
+    images_dev = upload_images(ds.images, dev)
+    path = _write_cfg(tmp, "eval_sauc", cfg)
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    aucs, text = _cli(eval_run, ["--config", path, "--sauc", "--episodes", str(CLI_EPISODES),
+                                 "--fold-bn", "--bf16", "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["sauc_bf16"] = _expect_counts("--sauc bf16", "tensor_core", per * n_batches)
+    if aucs.shape != (CLI_EPISODES,) or not ((aucs >= 0) & (aucs <= 1)).all():
+        _fail(f"--sauc: per-episode AUCs malformed: shape {aucs.shape}")
+    head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, want = eval_run.sauc_eval(head, ds, CLI_EPISODES, 1, images_dev=images_dev, device=dev)
+    sauc_eps = CLI_EPISODES / (time.perf_counter() - t0)
+    if not np.array_equal(aucs, want):
+        _fail("--sauc: the CLI and in-process sauc_eval disagree")
+    cfg_plain = dict(cfg, model_args={"encoder_args": {"use_pallas_attn": False}})
+    a = {}
+    for which, c in (("kernel", cfg), ("plain", cfg_plain)):
+        hd = fold_encoder_in_head(eval_run.load_model_for_eval(Config(c), torch.float32, dev))
+        a[which] = eval_run.sauc_eval(hd, ds, CLI_EPISODES, 1, images_dev=images_dev,
+                                      device=dev)[2]
+        del hd
+    mean_d = float(np.abs(a["kernel"] - a["plain"]).mean())
+    print(f"--sauc {tag}: {CLI_EPISODES} 2-way episodes bf16 on synthetic-local: wall "
+          f"{wall:.2f} s, in-process {sauc_eps:.1f} episodes/s, mean AUC {aucs.mean():.4f} "
+          f"(per-episode std {aucs.std():.4f}), equal to the CLI's; launches "
+          f"{counts['sauc_bf16']}; fp32 (TF32 off) kernel path vs plain path: mean|dAUC|="
+          f"{mean_d:.2e} (limit 0.005), mean AUC {a['kernel'].mean():.4f} vs "
+          f"{a['plain'].mean():.4f}")
+    if not mean_d <= 0.005:
+        _fail("--sauc: the fp32 kernel path and the plain path disagree")
+    entry.update({"sauc_bf16_wall_s": wall, "sauc_bf16_episodes_per_s": sauc_eps,
+                  "sauc_fp32_kernel_vs_plain_mean_abs_d": mean_d})
+    del head, images_dev
+    torch.cuda.empty_cache()
+    return entry, counts, pth
+
+
+def _loaders(dev, tmp, pth, tag):
+    """Phase 16. Returns (entry, launch counts per path)."""
+    import importlib.util
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets
+    from fewshot_vit_tpu_torch.core.rng import DEFAULT_SEED
+    from fewshot_vit_tpu_torch.data.staging import upload_images
+    from fewshot_vit_tpu_torch.data.transforms import CIFAR_MEAN, CIFAR_STD
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval.episodic import evaluate
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    if has_pil:
+        print("PIL on this machine: yes")
+    else:
+        print("PIL on this machine: NO. The PIL loaders (cifar-fs, image-folder, fc100, cub) "
+              "and resize_crop are left to the CPU tests; the tiered split runs at 80x80 with "
+              "protocol raw")
+    splits = {}  # name -> (loader arguments, what is on disk)
+    size = 84 if has_pil else 80
+    root = os.path.join(tmp, "tiered")
+    os.makedirs(root)
+    src = datasets.make("synthetic", image_size=size, **TIERED_TEST)
+    np.savez(os.path.join(root, "test_images.npz"), images=src.images[..., ::-1])  # stored BGR
+    with open(os.path.join(root, "test_labels.pkl"), "wb") as f:
+        pickle.dump({"labels": src.labels.tolist()}, f)
+    protocol = "resize_crop" if has_pil else "raw"
+    splits["tiered-imagenet"] = (
+        {"root_path": root, "split": "test", "image_size": 80, "protocol": protocol},
+        f"{len(src.images)} images at {size}x{size} ({src.images.nbytes / 2 ** 20:.0f} MiB "
+        f"uint8), {protocol}")
+    if not has_pil:
+        want_raw = src.images
+    del src
+    if has_pil:
+        from PIL import Image
+
+        cifar = datasets.make("synthetic", **CIFAR_TEST)
+        root = os.path.join(tmp, "cifar")
+
+        def write(i):
+            d = os.path.join(root, "meta-test", f"class{cifar.labels[i]:02d}")
+            Image.fromarray(cifar.images[i]).save(os.path.join(d, f"{i:05d}.png"))
+
+        for c in range(CIFAR_TEST["n_classes"]):
+            os.makedirs(os.path.join(root, "meta-test", f"class{c:02d}"))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(write, range(len(cifar.images))))
+        splits["cifar-fs"] = ({"root_path": root, "split": "test", "image_size": 80},
+                              f"{len(cifar.images)} PNGs at 32x32, resize")
+        del cifar
+
+    entry, counts = {"pil": has_pil}, {}
+    n_batches = math.ceil(LOADER_EPISODES / CLI_EP_PER_BATCH)
+    for name, (args, desc) in splits.items():
+        t0 = time.perf_counter()
+        ds = datasets.make(name, **args)
+        load_s = time.perf_counter() - t0
+        n_cls = TIERED_TEST["n_classes"] if name == "tiered-imagenet" else CIFAR_TEST["n_classes"]
+        if ds.images.shape[1:] != (80, 80, 3) or ds.n_classes != n_cls:
+            _fail(f"{name}: loaded {ds.images.shape}, {ds.n_classes} classes")
+        if name == "cifar-fs" and not (np.array_equal(ds.mean, CIFAR_MEAN)
+                                       and np.array_equal(ds.std, CIFAR_STD)):
+            _fail("cifar-fs: not the CIFAR normalization stats")
+        if name == "tiered-imagenet" and not has_pil and not np.array_equal(ds.images, want_raw):
+            _fail("tiered-imagenet raw: the BGR -> RGB flip did not restore the images")
+        cfg = {"dataset": name, "dataset_args": args, "encoder": ENCODER,
+               "model_args": {"encoder_args": {"use_pallas_attn": True}}, "load": pth}
+        path = _write_cfg(tmp, f"eval_{name}", cfg)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        accs, _ = _cli(eval_run, ["--config", path, "--episodes", str(LOADER_EPISODES),
+                                  "--fold-bn", "--bf16", "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[f"eval_cli_{name}"] = _expect_counts(f"eval CLI on {name}", "tensor_core",
+                                                    _mhsa_per_forward() * n_batches)
+        if accs.shape != (LOADER_EPISODES,) or not ((accs >= 0) & (accs <= 1)).all():
+            _fail(f"eval CLI on {name}: episode accuracies malformed")
+        head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16,
+                                                                 dev))
+        images_dev = upload_images(ds.images, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, want = evaluate(head, ds, n_episodes=LOADER_EPISODES,
+                              ep_per_batch=CLI_EP_PER_BATCH, seed=DEFAULT_SEED,
+                              images_dev=images_dev, device=dev)
+        eps = LOADER_EPISODES / (time.perf_counter() - t0)
+        if not np.array_equal(accs, want):
+            _fail(f"eval CLI on {name} and in-process evaluate disagree")
+        print(f"loader {tag} {name} ({desc}, to 80x80): load {load_s:.2f} s; eval CLI "
+              f"{LOADER_EPISODES} episodes --fold-bn --bf16: wall {wall:.2f} s; in-process "
+              f"evaluate of the same episodes {eps:.1f} episodes/s; launches "
+              f"{counts[f'eval_cli_{name}']}")
+        entry[name] = {"load_s": load_s, "cli_wall_s": wall, "episodes_per_s": eps}
+        del ds, head, images_dev
+    return entry, counts
 
 
 def main() -> int:
@@ -1459,14 +1810,24 @@ def main() -> int:
     train_launches.update(sun_counts)
     del mini_dev, mini_labels
     torch.cuda.empty_cache()
-    _run_cli_chain(tag)
+    eval_launches = _run_cli_chain(tag, dev)
+
+    # phases 14-16: the eval CLIs from a reference .pth, --sauc, the loaders
+    with tempfile.TemporaryDirectory() as tmp:
+        clis, counts, pth = _eval_from_pth(dev, tmp, tag)
+        eval_launches.update(counts)
+        clis["loaders"], counts = _loaders(dev, tmp, pth, tag)
+        eval_launches.update(counts)
     for entry in kernels:
         entry["train_launches"] = {
             path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
                    else sum(c[entry["name"]].values()))
             for path, c in train_launches.items()}
+        entry["eval_cli_launches"] = {path: sum(c[entry["name"]].values())
+                                      for path, c in eval_launches.items()}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training, "card": card}))
+    print(json.dumps({"eval_clis": clis, "card": card}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -106,7 +106,8 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if key in out:
                 raise ValueError(f"flax leaf {col}/{'/'.join(path)} maps to {key!r} twice")
             w = _to_torch_layout(path, np.asarray(leaf))
-            out[key] = torch.from_numpy(np.ascontiguousarray(w))
+            # ascontiguousarray makes a 0-d leaf (temp) 1-d: keep its shape
+            out[key] = torch.from_numpy(np.ascontiguousarray(w).reshape(w.shape))
     return out
 
 

@@ -5,8 +5,8 @@ The port's own format: a checkpoint is a directory holding ``arrays.pt``
 (``torch.save`` of a state dict, or of a ``TrainState.state_dict()`` for
 resume) beside a ``meta.json`` with the keys the JAX package writes (model
 name, encoder, epoch, val_acc). It is not the JAX package's orbax layout:
-the two packages do not read each other's checkpoints. Reference ``.pth``
-files are not ingested yet.
+the two packages do not read each other's checkpoints. Both read the
+reference's ``.pth`` files (``checkpoint/reference.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +48,11 @@ def save_variables(path: str, variables: Any, meta: Optional[Dict] = None) -> No
         shutil.rmtree(old)
 
 
+def is_pth(path: str) -> bool:
+    """A reference checkpoint file, not a directory of this package."""
+    return str(path).endswith(".pth")
+
+
 def _resolve(path: str) -> Optional[str]:
     path = os.path.abspath(path)
     for p in (path, path + ".old"):  # ``.old``: only survivor of an interrupted swap
@@ -57,17 +62,21 @@ def _resolve(path: str) -> Optional[str]:
 
 
 def has_checkpoint(path: str) -> bool:
-    """True iff ``load_variables(path)`` would succeed, including the case
-    where only ``path + '.old'`` survived an interrupted swap."""
+    """True iff ``load_variables(path)`` would find a checkpoint directory,
+    including the case where only ``path + '.old'`` survived an interrupted
+    swap."""
     return _resolve(path) is not None
 
 
 def load_variables(path: str, map_location: Any = "cpu") -> Tuple[Any, Dict]:
-    """Load ``(variables, meta)`` from a directory ``save_variables`` wrote."""
-    if str(path).endswith(".pth"):
-        raise NotImplementedError(
-            f"{path!r}: reference .pth checkpoints are not ingested yet "
-            "(ROADMAP.md, item d of the order list)")
+    """Load ``(variables, meta)`` from a directory ``save_variables`` wrote,
+    or ``(state dict, {model, model_args})`` from a reference ``.pth`` file
+    (``reference.load_torch_state_dict``: CPU tensors, keys as the file has
+    them, ``module.`` stripped)."""
+    if is_pth(path):
+        from .reference import load_torch_state_dict
+
+        return load_torch_state_dict(path)
     found = _resolve(path)
     if found is None:
         raise FileNotFoundError(f"no checkpoint at {path!r} (expected a directory "
@@ -80,6 +89,40 @@ def load_variables(path: str, map_location: Any = "cpu") -> Tuple[Any, Dict]:
         with open(meta_path) as f:
             meta = json.load(f)
     return variables, meta
+
+
+def load_module_state(path: str, map_location: Any = "cpu") -> Tuple[Dict, Dict]:
+    """``load_variables`` for loading a module: a ``resume`` directory's
+    train state gives its ``model`` entry."""
+    variables, meta = load_variables(path, map_location)
+    if isinstance(variables.get("model"), dict):
+        variables = variables["model"]
+    return variables, meta
+
+
+def load_model(path: str, device: Any = "cuda", **overrides: Any):
+    """Rebuild a registered head from a checkpoint directory's ``meta.json``
+    (``model``, and the ``encoder`` and ``n_classes`` the trainers record)
+    and return it on ``device`` with its state dict loaded (a ``resume``
+    directory's ``model``). ``overrides`` go to the constructor (e.g.
+    ``encoder_args``, ``dtype``), as the reference's ``models.load(sv)``
+    rebuilds from the saved name and arguments."""
+    from ..core.registry import models
+    from ..heads import classifier, deepemd, meta_baseline, token_label  # noqa: F401
+
+    variables, meta = load_module_state(path)
+    name = meta.get("model")
+    if name is None:
+        raise ValueError(f"checkpoint at {path!r} has no 'model' in its meta")
+    kwargs: Dict[str, Any] = {}
+    if meta.get("encoder"):
+        kwargs["encoder"] = meta["encoder"]
+    if meta.get("n_classes") is not None:
+        kwargs["classifier_args"] = {"n_classes": int(meta["n_classes"])}
+    kwargs.update(overrides)
+    model = models.make(name, device=device, **kwargs)
+    model.load_state_dict(variables, strict=True)
+    return model
 
 
 class CheckpointPolicy:

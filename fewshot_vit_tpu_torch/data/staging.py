@@ -14,18 +14,21 @@ When the split does not fit the budget:
     chunk-local indices; the permutation is padded by cycling to fill the
     last chunk.
 
-``memmap_cache`` (ImageNet-800 scale) is not ported yet.
+For ImageNet-800 scale, ``memmap_cache`` keeps the decoded split as a
+read-only ``np.memmap``; ``upload_images`` copies such an array to the card
+in chunks, never through a second full host copy.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterator, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 DEFAULT_GPU_BUDGET_GB = 8.0
+UPLOAD_CHUNK_BYTES = 256 << 20
 
 
 def needs_staging(images: np.ndarray, budget_gb: float = DEFAULT_GPU_BUDGET_GB) -> bool:
@@ -36,6 +39,30 @@ def gpu_budget_gb(cfg) -> float:
     """``gpu_budget_gb`` of a config; the JAX package's key ``hbm_budget_gb``
     is accepted as its alias."""
     return float(cfg.get("gpu_budget_gb", cfg.get("hbm_budget_gb", DEFAULT_GPU_BUDGET_GB)))
+
+
+def memmap_cache(path: str, images: Optional[np.ndarray] = None) -> np.ndarray:
+    """Write-once / read-many image cache: with ``images``, save them at
+    ``path`` (a ``.npy``); either way return a read-only memmap of it."""
+    if images is not None:
+        np.save(path, images)
+    return np.load(path, mmap_mode="r")
+
+
+def upload_images(images: np.ndarray, device: Any) -> torch.Tensor:
+    """``images`` as a tensor on ``device``. A writable array goes through
+    ``torch.from_numpy`` (on the CPU the tensor shares its memory). A
+    read-only one (a ``memmap_cache``) is copied into a tensor allocated on
+    ``device``, ``UPLOAD_CHUNK_BYTES`` at a time: torch never wraps memory
+    it may not write, and the host holds one chunk, not a second copy."""
+    if images.flags.writeable:
+        return torch.from_numpy(images).to(device)
+    out = torch.empty(images.shape, dtype=torch.from_numpy(np.empty(0, images.dtype)).dtype,
+                      device=device)
+    rows = max(1, UPLOAD_CHUNK_BYTES // max(1, images[:1].nbytes))
+    for start in range(0, len(images), rows):
+        out[start: start + rows].copy_(torch.from_numpy(np.array(images[start: start + rows])))
+    return out
 
 
 def epoch_subset(images: np.ndarray, idx: np.ndarray, cap: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -13,6 +13,9 @@ import torch
 # ImageNet normalization (reference ``datasets/mini_imagenet.py:151-152``)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
+# CIFAR-FS stats (reference ``datasets/cifar_fs.py:138-139``)
+CIFAR_MEAN = np.array([0.5071, 0.4867, 0.4408], np.float32)
+CIFAR_STD = np.array([0.2675, 0.2565, 0.2761], np.float32)
 
 
 def normalize(x: torch.Tensor, mean=MEAN, std=STD,

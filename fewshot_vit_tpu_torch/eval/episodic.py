@@ -24,6 +24,7 @@ from ..core import rng as rng_mod
 from ..core.device import resolve_device
 from ..data.datasets import ArrayDataset
 from ..data.sampler import EpisodeSampler
+from ..data.staging import upload_images
 from ..data.transforms import normalize
 from ..ops.episodes import make_nk_label, split_shot_query
 from ..ops.metric import compute_logits, mean_confidence_interval, per_episode_acc
@@ -53,7 +54,7 @@ def _on_device(module: torch.nn.Module, dev: torch.device) -> None:
 def _upload(dataset: ArrayDataset, images_dev: Optional[torch.Tensor],
             dev: torch.device) -> torch.Tensor:
     if images_dev is None:
-        return torch.from_numpy(dataset.images).to(dev)
+        return upload_images(dataset.images, dev)
     if images_dev.device != dev or images_dev.dtype != torch.uint8:
         raise ValueError(f"images_dev is {images_dev.dtype} on {images_dev.device}, "
                          f"expected uint8 on {dev}")

@@ -12,15 +12,18 @@ The config is read as the JAX CLI reads it: ``test_dataset`` (else
 ``val_dataset``) with ``*_args``, ``model_args.encoder(_args)``, ``deepemd``,
 ``patch_list``, ``patch_ratio``, ``image_size``, ``solver``, ``solver_reg``,
 ``solver_iters``, ``temperature``, ``feature_pyramid`` and ``sfc_*``.
-``solver: sinkhorn_pallas`` runs the CUDA Sinkhorn kernel. Weights are
-seeded; loading a checkpoint (``load:`` / ``load_encoder:``) is not ported
-yet.
+``solver: sinkhorn_pallas`` runs the CUDA Sinkhorn kernel. The weights
+come from ``load:`` (a whole DeepEMD head: a port checkpoint directory or a
+reference ``.pth``, e.g. SUN-D's ``{"params": ...}`` files) or
+``load_encoder:`` (the encoder of any head's checkpoint); without either
+they are seeded, and the CLI says so.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from ..core import rng as rng_mod
@@ -29,10 +32,13 @@ from ..core.device import resolve_device
 from ..core.registry import datasets, models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
 from ..heads import deepemd as _heads  # noqa: F401  (registers the heads)
+from ..train.runner import resolve_checkpoint
 from .emd_eval import evaluate_emd
+from .run import RANDOM_WEIGHTS
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> np.ndarray:
+    """Run the CLI; returns the per-episode accuracies."""
     p = argparse.ArgumentParser(description="SUN-D DeepEMD eval (PyTorch/CUDA)")
     p.add_argument("--config", required=True)
     p.add_argument("--shot", type=int, default=None)
@@ -46,10 +52,6 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = load_config(args.config)
-    if cfg.get("load") or cfg.get("load_encoder"):
-        raise NotImplementedError(
-            "checkpoint loading ('load' / 'load_encoder') is not ported yet: "
-            "ROADMAP.md section 1, item 7 (checkpoint/io.py .pth ingestion)")
 
     key = "test_dataset" if cfg.get("test_dataset") else "val_dataset"
     ds = datasets.make(cfg.get(key, "mini-imagenet"), **dict(cfg.get(f"{key}_args", {}) or {}))
@@ -59,9 +61,10 @@ def main(argv=None) -> None:
     n_episodes = args.episodes or (2000 if shot == 1 else 600)
     mode = cfg.get("deepemd", "grid")
 
+    enc_name = cfg.get("model_args.encoder", "visformer_micro_80")
     head = models.make(
         "deepemd",
-        encoder=cfg.get("model_args.encoder", "visformer_micro_80"),
+        encoder=enc_name,
         encoder_args=dict(cfg.get("model_args.encoder_args", {}) or {}),
         temperature=float(cfg.get("temperature", 12.5)),
         solver_reg=float(cfg.get("solver_reg", 0.05)),
@@ -71,11 +74,13 @@ def main(argv=None) -> None:
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         device=dev, seed=rng_mod.DEFAULT_SEED,
     )
+    if resolve_checkpoint(cfg, head, enc_name) is None:
+        print(RANDOM_WEIGHTS)
     # the standalone eval's SFC learning rate is 100, not the trainer's 0.1
     sfc_kw = {"steps": int(cfg.get("sfc_update_step", 100)),
               "lr": float(cfg.get("sfc_lr", 100.0)),
               "batch_size": int(cfg.get("sfc_bs", 4))}
-    m, h, _ = evaluate_emd(
+    m, h, accs = evaluate_emd(
         head, ds, way=way, shot=shot, query=query, n_episodes=n_episodes,
         ep_per_batch=args.ep_per_batch, mode=mode, cached=args.cached,
         patch_list=cfg.get("patch_list", [2, 3]),
@@ -83,6 +88,7 @@ def main(argv=None) -> None:
         image_size=int(cfg.get("image_size", 80)), sfc_kw=sfc_kw, device=dev)
     print(f"{way}-way {shot}-shot ({mode}): acc={m * 100:.2f} +- {h * 100:.2f} (%)  "
           f"[{n_episodes} episodes]")
+    return accs
 
 
 if __name__ == "__main__":

@@ -111,7 +111,7 @@ def emd_logits(
     if solver_impl == "exact":
         raise NotImplementedError(
             "solver 'exact' (the C++ transportation simplex) is not ported yet: "
-            "ROADMAP.md section 1, slice 2")
+            "ROADMAP.md, item c of the order list")
     proto = proto.float()
     query = query.float()
     w_query = weight_vector(query, proto)                 # (..., Q, way, N)

@@ -7,8 +7,9 @@ from .metric import (
     mean_confidence_interval,
     normal_confidence_interval,
     per_episode_acc,
+    roc_auc,
 )
 
 __all__ = ["compute_acc", "compute_logits", "emd_distance", "l2_normalize", "make_nk_label",
            "mean_confidence_interval", "normal_confidence_interval",
-           "normalize_weights", "per_episode_acc", "sinkhorn", "split_shot_query"]
+           "normalize_weights", "per_episode_acc", "roc_auc", "sinkhorn", "split_shot_query"]

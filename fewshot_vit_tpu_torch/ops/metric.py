@@ -76,3 +76,29 @@ def normal_confidence_interval(accs):
     m = float(np.mean(a))
     pm = 1.96 * float(np.std(a)) / np.sqrt(a.shape[0])
     return m, pm
+
+
+def roc_auc(scores, labels) -> float:
+    """Binary ROC-AUC, rank-based with tied scores given their average rank
+    (sklearn's ``roc_auc_score``; the reference ``--sauc`` mode). scores
+    (M,), higher = more positive; labels (M,) in {0, 1}. Float64, host side;
+    NaN when one class is absent."""
+    s = np.asarray(scores, dtype=np.float64).reshape(-1)
+    y = np.asarray(labels).reshape(-1)
+    order = np.argsort(s, kind="mergesort")
+    ranks = np.empty_like(order, dtype=np.float64)
+    ranks[order] = np.arange(1, len(s) + 1)
+    sorted_s = s[order]
+    i = 0
+    while i < len(s):
+        j = i
+        while j + 1 < len(s) and sorted_s[j + 1] == sorted_s[i]:
+            j += 1
+        if j > i:
+            ranks[order[i: j + 1]] = (i + 1 + j + 1) / 2.0
+        i = j + 1
+    n_pos = int(np.sum(y == 1))
+    n_neg = len(y) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    return float((np.sum(ranks[y == 1]) - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))

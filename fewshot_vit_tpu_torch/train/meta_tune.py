@@ -25,7 +25,7 @@ from ..core.log import RunLogger
 from ..core.registry import models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
 from ..data.sampler import EpisodeSampler
-from ..data.staging import epoch_subset, gpu_budget_gb, needs_staging
+from ..data.staging import epoch_subset, gpu_budget_gb, needs_staging, upload_images
 from ..eval.episodic import evaluate, sample_episode_indices
 from ..heads import meta_baseline as _heads  # noqa: F401  (registers the heads)
 from .loop import make_meta_tune_epoch, metrics_mean
@@ -83,7 +83,8 @@ def main(cfg, args) -> TrainState:
     check_standard_episodic(head, name)
     load_enc = cfg.get("load_encoder")
     if load_enc:
-        load_encoder_from_checkpoint(load_enc, head.encoder)
+        load_encoder_from_checkpoint(load_enc, head.encoder,
+                                     cfg.get("model_args.encoder", "visformer_micro_80"))
     else:
         logger.log("WARNING: no 'load_encoder': encoder randomly initialized")
 
@@ -109,7 +110,7 @@ def main(cfg, args) -> TrainState:
                    f"> {budget:g} GiB; staging <= {epoch_cap} images/epoch")
         images_dev = None
     else:
-        images_dev = torch.from_numpy(train_ds.images).to(dev)
+        images_dev = upload_images(train_ds.images, dev)
     sampler = EpisodeSampler(train_ds.labels, train_batches, way, shot + query, ep_per_batch)
     n_way, n_shot = int(cfg.get("n_way", 5)), int(cfg.get("n_shot", 1))
     n_query = int(cfg.get("n_query", 15))
@@ -126,8 +127,8 @@ def main(cfg, args) -> TrainState:
     elif val_ds is train_ds:
         val_images_dev = images_dev
     else:
-        val_images_dev = torch.from_numpy(val_ds.images).to(dev)
-    tval_images_dev = torch.from_numpy(tval_ds.images).to(dev) if tval_ds is not None else None
+        val_images_dev = upload_images(val_ds.images, dev)
+    tval_images_dev = upload_images(tval_ds.images, dev) if tval_ds is not None else None
     policy = CheckpointPolicy(logger.save_dir, save_epoch=cfg.get("save_epoch"))
 
     resume_dir = os.path.join(logger.save_dir, "resume")

@@ -243,6 +243,7 @@ def main(cfg, args) -> TrainState:
     from ..core.registry import models
     from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
     from ..data.sampler import EpisodeSampler
+    from ..data.staging import upload_images
     from ..eval.emd_eval import evaluate_emd, sample_emd_episode_indices
     from ..heads import deepemd as _heads  # noqa: F401  (registers the heads)
     from .runner import (
@@ -284,7 +285,8 @@ def main(cfg, args) -> TrainState:
     )
     load_enc = cfg.get("load_encoder")
     if load_enc:
-        load_encoder_from_checkpoint(load_enc, head.encoder)
+        load_encoder_from_checkpoint(load_enc, head.encoder,
+                                     cfg.get("model_args.encoder", "visformer_micro_80"))
     else:
         logger.log("WARNING: no 'load_encoder': encoder randomly initialized")
 
@@ -304,11 +306,11 @@ def main(cfg, args) -> TrainState:
         sfc=shot > 1, sfc_kw=sfc_kw, train=True, remat=bool(cfg.get("remat", False)),
         seed=args.seed)
     labels = torch.arange(way, device=dev).repeat(query)
-    images_dev = torch.from_numpy(train_ds.images).to(dev)
+    images_dev = upload_images(train_ds.images, dev)
     epoch_fn = make_emd_epoch_fn(episode_fn, labels, ep_per_batch,
                                  grad_accum=bool(cfg.get("grad_accum", False)))
     # do not hold the images twice when validating on the train split
-    val_images = images_dev if val_ds is train_ds else torch.from_numpy(val_ds.images).to(dev)
+    val_images = images_dev if val_ds is train_ds else upload_images(val_ds.images, dev)
 
     # grid and fcn eval patches are a fixed function of the image, so the
     # validation encodes each image's nodes once and gathers per episode
@@ -376,7 +378,7 @@ def main(cfg, args) -> TrainState:
         test_ds = build_dataset(cfg, "test_dataset") or val_ds
         test_idx = sample_emd_episode_indices(test_ds, test_episodes, way, shot + query, seed=1)
         test_images = (val_images if test_ds is val_ds
-                       else torch.from_numpy(test_ds.images).to(dev))
+                       else upload_images(test_ds.images, dev))
         m_t, ci_t, _ = run_eval(test_ds, test_images, test_idx)
         head.load_state_dict(last_vars)  # the returned state is the last epoch's
         # the max-va meta is authoritative: it survives resume, the local

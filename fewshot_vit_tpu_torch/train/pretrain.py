@@ -32,7 +32,7 @@ from ..core.device import resolve_device
 from ..core.log import RunLogger
 from ..core.registry import models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
-from ..data.staging import EpochStager, gpu_budget_gb, needs_staging
+from ..data.staging import EpochStager, gpu_budget_gb, needs_staging, upload_images
 from ..heads import classifier as _heads  # noqa: F401  (registers the heads)
 from .loop import batch_indices, eval_metrics, make_eval_ce_epoch, make_pretrain_epoch, metrics_mean
 from .runner import (
@@ -87,7 +87,7 @@ def main(cfg, args) -> TrainState:
                    f"x {stager.chunk_imgs} imgs")
         images_dev = labels_dev = None
     else:
-        images_dev = torch.from_numpy(train_ds.images).to(dev)
+        images_dev = upload_images(train_ds.images, dev)
         labels_dev = torch.from_numpy(train_ds.labels.astype(np.int64)).to(dev)
 
     preprocess_fn = None
@@ -119,9 +119,9 @@ def main(cfg, args) -> TrainState:
         return metrics_mean({k: torch.cat([c[k] for c in chunks]) for k in chunks[0]})
 
     eval_fn = make_eval_ce_epoch(train_ds.mean, train_ds.std, n_valid=len(val_ds)) if val_ds else None
-    val_images = torch.from_numpy(val_ds.images).to(dev) if val_ds else None
+    val_images = upload_images(val_ds.images, dev) if val_ds else None
     val_labels = torch.from_numpy(val_ds.labels.astype(np.int64)).to(dev) if val_ds else None
-    fs_images = torch.from_numpy(fs_ds.images).to(dev) if fs_ds is not None else None
+    fs_images = upload_images(fs_ds.images, dev) if fs_ds is not None else None
 
     def val_ce(module):
         vidx = batch_indices(len(val_ds), min(batch_size, len(val_ds)), rng_mod.np_rng(0, 0),

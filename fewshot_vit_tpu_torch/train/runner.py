@@ -14,7 +14,12 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from ..checkpoint.io import load_variables
+from ..checkpoint.io import is_pth, load_module_state
+from ..checkpoint.reference import (
+    encoder_key_fn_for,
+    load_reference_encoder_checkpoint,
+    load_reference_head_checkpoint,
+)
 from ..core import rng as rng_mod
 from ..core.config import Config, load_config
 from ..core.registry import datasets
@@ -27,7 +32,7 @@ from .optim import (
     timm_multistep_schedule,
 )
 
-_AUXILIARIES = "comes with the auxiliaries slice (ROADMAP.md, item f of the order list)"
+AUXILIARIES = "comes with the auxiliaries slice (ROADMAP.md, item f of the order list)"
 
 
 def parse_args(description: str, argv=None) -> Tuple[Config, argparse.Namespace]:
@@ -48,11 +53,11 @@ def check_single_device(cfg: Config) -> None:
     every trainer's ``main`` calls this before it builds anything."""
     for key in ("distributed", "mesh"):
         if cfg.get(key):
-            raise NotImplementedError(f"'{key}:' (multi-device training) {_AUXILIARIES}")
+            raise NotImplementedError(f"'{key}:' (multi-device training) {AUXILIARIES}")
     if cfg.get("visualize_datasets"):
         # the sample grids of each split and of each augmented training view
         # (the JAX package's visualize_datasets / visualize_augmented)
-        raise NotImplementedError(f"'visualize_datasets: true' (sample-grid PNGs) {_AUXILIARIES}")
+        raise NotImplementedError(f"'visualize_datasets: true' (sample-grid PNGs) {AUXILIARIES}")
 
 
 def save_dir_for(cfg: Config, args: argparse.Namespace, default_name: str) -> str:
@@ -125,16 +130,50 @@ def build_optimizer(cfg: Config, params: Iterable[nn.Parameter],
                           mask_decay=bool(oargs.get("mask_decay", False)))
 
 
-def load_encoder_from_checkpoint(path: str, encoder: nn.Module) -> nn.Module:
-    """Load ``encoder`` from a checkpoint directory of any head-wrapped model
-    (keys under ``encoder.``; head parameters and ``temp`` are discarded) or
-    of a bare encoder. A reference ``.pth`` raises ``NotImplementedError``."""
-    saved, _ = load_variables(path)
-    if "model" in saved and isinstance(saved["model"], dict):  # a resume directory
-        saved = saved["model"]
+def load_encoder_from_checkpoint(path: str, encoder: nn.Module,
+                                 encoder_name: Optional[str] = None) -> nn.Module:
+    """Load ``encoder`` from a checkpoint of any head-wrapped model, head
+    parameters and ``temp`` discarded (the reference's ``load_encoder``): a
+    port directory (keys under ``encoder.``, a ``resume`` directory's
+    ``model``, or a bare encoder), or a reference ``.pth`` through
+    ``checkpoint.reference`` with the key rule of ``encoder_name`` (default:
+    the Visformer rule)."""
+    if is_pth(path):
+        key_fn = encoder_key_fn_for(encoder_name) if encoder_name else None
+        return load_reference_encoder_checkpoint(path, encoder, key_fn)
+    saved, _ = load_module_state(path)
     enc = {k[len("encoder."):]: v for k, v in saved.items() if k.startswith("encoder.")}
     encoder.load_state_dict(enc or saved, strict=True)
     return encoder
+
+
+def resolve_checkpoint(cfg: Config, head: nn.Module, encoder_name: str) -> Optional[str]:
+    """Apply a config's ``load:`` / ``load_encoder:`` to the freshly built
+    ``head``, in place (the JAX package's ``resolve_checkpoint_variables``,
+    which both eval CLIs share): ``load:`` a port directory (a whole head
+    state dict, or a ``resume`` directory's ``model``) or a reference
+    ``.pth`` through the head rule; ``load_encoder:`` a directory or a
+    ``.pth``, encoder only. Returns the path loaded, or None when the config
+    names no checkpoint.
+
+    A DeepEMD checkpoint may carry the pretrain classifier ``fc`` (a head
+    built with ``n_classes``); an episodic head has none and never reads it,
+    so a directory's ``fc.*`` entries are dropped then, as the JAX CLIs'
+    ``apply`` ignores that subtree."""
+    path = cfg.get("load") or cfg.get("load_encoder")
+    if not path:
+        return None
+    if not cfg.get("load"):
+        load_encoder_from_checkpoint(path, head.encoder, encoder_name)
+        return path
+    if is_pth(path):
+        load_reference_head_checkpoint(path, head, encoder_key_fn_for(encoder_name))
+        return path
+    saved, _ = load_module_state(path)
+    if not hasattr(head, "fc"):
+        saved = {k: v for k, v in saved.items() if not k.startswith("fc.")}
+    head.load_state_dict(saved, strict=True)
+    return path
 
 
 def fs_eval(encoder: nn.Module, dataset: ArrayDataset, n_episodes: int = 200, way: int = 5,

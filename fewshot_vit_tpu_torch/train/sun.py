@@ -33,6 +33,7 @@ from ..core.device import resolve_device
 from ..core.log import RunLogger
 from ..core.registry import models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
+from ..data.staging import upload_images
 from ..heads import token_label as _heads  # noqa: F401  (registers the heads)
 from .loop import batch_indices, make_sun_epoch, metrics_mean
 from .runner import (
@@ -112,9 +113,9 @@ def main(cfg, args) -> TrainState:
         dual_view_fn, train_ds.mean, train_ds.std, remat=bool(cfg.get("remat", False)),
         soft_k=int(cfg.get("tl_soft_k", 5)), bg_tokens=int(cfg.get("bg_token_num", 10)),
         token_weight=float(cfg.get("token_label_weight", 0.5)))
-    images_dev = torch.from_numpy(train_ds.images).to(dev)
+    images_dev = upload_images(train_ds.images, dev)
     labels_dev = torch.from_numpy(train_ds.labels.astype(np.int64)).to(dev)
-    fs_images = torch.from_numpy(fs_ds.images).to(dev) if fs_ds is not None else None
+    fs_images = upload_images(fs_ds.images, dev) if fs_ds is not None else None
 
     policy = CheckpointPolicy(logger.save_dir, save_epoch=cfg.get("save_epoch"))
     eval_fs_epoch = int(cfg.get("eval_fs_epoch", 5) or 0)

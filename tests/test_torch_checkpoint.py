@@ -1,7 +1,7 @@
 """The port's checkpoint format: save / has / load bit for bit, the atomic
 swap's crash window, ``CheckpointPolicy``'s three kinds of directories, the
-encoder loader, the train state's round trip, and the refusal of reference
-``.pth`` files."""
+encoder loader over a directory and a reference ``.pth``, and the train
+state's round trip."""
 
 import json
 import os
@@ -79,6 +79,9 @@ def test_checkpoint_policy_directories(tmp_path):
 
 
 def test_load_encoder_from_checkpoint_and_pth_refusal(tmp_path):
+    """A directory and a reference ``.pth`` load (head entries dropped); a
+    ``.pth`` with an entry the encoder does not hold, or one named for an
+    encoder family without a key rule, is refused."""
     head = _head(3)
     save_variables(str(tmp_path / "max-va"), head.state_dict(), {})
     enc = Visformer(**TINY, device="cpu", seed=4)
@@ -88,10 +91,22 @@ def test_load_encoder_from_checkpoint_and_pth_refusal(tmp_path):
     enc2 = Visformer(**TINY, device="cpu", seed=5)
     load_encoder_from_checkpoint(str(tmp_path / "bare"), enc2)
     assert torch.equal(enc2.stem.conv1.weight, enc.stem.conv1.weight)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_encoder_from_checkpoint("./materials/max-va-1shot.pth", enc)
-    with pytest.raises(NotImplementedError, match=".pth"):
-        load_variables(str(tmp_path / "teacher.pth"))
+    sd = dict(head.state_dict(), **{"classifier.linear.weight": torch.ones(3, 96)})
+    torch.save({"model": "classifier", "model_sd": sd}, str(tmp_path / "teacher.pth"))
+    enc3 = load_encoder_from_checkpoint(str(tmp_path / "teacher.pth"),
+                                        Visformer(**TINY, device="cpu", seed=6),
+                                        "visformer_micro_80")
+    for k, v in head.encoder.state_dict().items():
+        assert torch.equal(enc3.state_dict()[k], v), k
+    saved, meta = load_variables(str(tmp_path / "teacher.pth"))
+    assert meta == {"model": "classifier"} and torch.equal(saved["temp"], head.temp.detach())
+    bad = {k: v for k, v in sd.items() if k.startswith("encoder.")}
+    bad["encoder.extra.weight"] = torch.zeros(1)
+    torch.save(bad, str(tmp_path / "bad.pth"))
+    with pytest.raises(ValueError, match="unconsumed torch tensors"):
+        load_encoder_from_checkpoint(str(tmp_path / "bad.pth"), enc)
+    with pytest.raises(KeyError, match="ROADMAP"):
+        load_encoder_from_checkpoint(str(tmp_path / "teacher.pth"), enc, "resnet12")
 
 
 def test_train_state_round_trip_with_ema(tmp_path):

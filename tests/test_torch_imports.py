@@ -5,6 +5,7 @@ that default to the card raise without one."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +40,10 @@ def test_scan_covers_the_port():
             "meta_tune.py", "optim.py", "state.py", "steps.py", "loop.py", "runner.py",
             "io.py", "staging.py", "augment.py", "log.py", "config.py",
             # the pretrain and SUN slice
-            "pretrain.py", "sun.py", "sam.py", "classifier.py", "token_label.py"} <= names
+            "pretrain.py", "sun.py", "sam.py", "classifier.py", "token_label.py",
+            # checkpoints, the eval CLIs' loading, the datasets
+            "reference.py", "from_flax.py", "run.py", "metric.py", "datasets.py",
+            "transforms.py"} <= names
     assert len([p for p in _port_files() if p.name == "token_label.py"]) == 2  # ops and heads
 
 
@@ -87,38 +91,82 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert not any(p.is_dir() for p in tmp_path.iterdir())  # no run directory was made
 
 
+ENC_ARGS = dict(use_pallas_attn=True, init_channels=16, embed_dim=96, depth=(1, 1, 1))
+
+
+def _checkpoints(tmp_path, model, **kw):
+    """A seeded head saved twice: as a port directory and as a reference
+    ``.pth`` (SUN-D's ``params`` layout with ``module.`` prefixes)."""
+    head = models.make(model, encoder="visformer_micro_80", encoder_args=ENC_ARGS,
+                       device="cpu", seed=3, **kw)
+    from fewshot_vit_tpu_torch.checkpoint import save_variables
+
+    save_variables(str(tmp_path / "max-va"), head.state_dict(), {"model": model})
+    torch.save({"params": {"module." + k: v for k, v in head.state_dict().items()}},
+               str(tmp_path / "max_acc.pth"))
+    return head
+
+
 def test_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys):
+    """Seeded (with a warning), then ``load:`` a directory and the same
+    weights as a ``.pth``: equal accuracies. A checkpoint of another width,
+    and the unported ``--int8``, are refused."""
     cfg = tmp_path / "c.yaml"
-    cfg.write_text(
-        "dataset: synthetic\n"
-        "dataset_args: {n_classes: 5, n_per_class: 16, image_size: 80}\n"
-        "encoder: visformer_micro_80\n"
-        "model_args: {encoder_args: {use_pallas_attn: true, init_channels: 16,\n"
-        "                            embed_dim: 96, depth: [1, 1, 1]}}\n")
+    text = ("dataset: synthetic\n"
+            "dataset_args: {n_classes: 5, n_per_class: 16, image_size: 80}\n"
+            "encoder: visformer_micro_80\n"
+            "model_args: {encoder_args: {use_pallas_attn: true, init_channels: 16,\n"
+            "                            embed_dim: 96, depth: [1, 1, 1]}}\n")
+    cfg.write_text(text)
     run.main(["--config", str(cfg), "--episodes", "1", "--fold-bn", "--device", "cpu"])
-    assert "test epoch 1: acc=" in capsys.readouterr().out
-    cfg.write_text("dataset: synthetic\nload: ./materials/max-va-1shot.pth\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    out = capsys.readouterr().out
+    assert "test epoch 1: acc=" in out and "WARNING: no 'load'" in out
+    _checkpoints(tmp_path, "meta-baseline")
+    accs = {}
+    for name in ("max-va", "max_acc.pth"):
+        cfg.write_text(text + f"load: {tmp_path / name}\n")
+        accs[name] = run.main(["--config", str(cfg), "--episodes", "8", "--fold-bn",
+                               "--device", "cpu"])
+        assert "WARNING" not in capsys.readouterr().out
+    np.testing.assert_array_equal(accs["max-va"], accs["max_acc.pth"])
+    cfg.write_text(text.replace("embed_dim: 96", "embed_dim: 48") + f"load: {tmp_path / 'max_acc.pth'}\n")
+    with pytest.raises(ValueError, match="shape mismatch"):
         run.main(["--config", str(cfg), "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run.main(["--config", str(cfg), "--int8", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("mode", ["grid", "fcn"])
 def test_sund_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys, mode):
+    """Seeded, then ``load_encoder:`` a MetaBaseline directory and ``load:``
+    the same encoder as a SUN-D ``.pth``: equal accuracies. A ``.pth``
+    carrying a pretrain ``fc`` the eval head does not hold is refused."""
     cfg = tmp_path / "c.yaml"
-    cfg.write_text(
-        "val_dataset: synthetic\n"
-        "val_dataset_args: {n_classes: 5, n_per_class: 4, image_size: 80}\n"
-        f"deepemd: {mode}\n"
-        "way: 3\nquery: 1\nsolver: sinkhorn_pallas\nsolver_iters: 20\n"
-        "model_args: {encoder: visformer_micro_80,\n"
-        "             encoder_args: {use_pallas_attn: true, init_channels: 16,\n"
-        "                            embed_dim: 96, depth: [1, 1, 1]}}\n")
-    run_emd.main(["--config", str(cfg), "--episodes", "2", "--ep-per-batch", "2",
-                  "--device", "cpu"])
-    assert f"3-way 1-shot ({mode}): acc=" in capsys.readouterr().out
-    cfg.write_text("val_dataset: synthetic\nload_encoder: ./save/sun_mini-imagenet/max-va\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_emd.main(["--config", str(cfg), "--device", "cpu"])
+    text = ("val_dataset: synthetic\n"
+            "val_dataset_args: {n_classes: 5, n_per_class: 4, image_size: 80}\n"
+            f"deepemd: {mode}\n"
+            "way: 3\nquery: 1\nsolver: sinkhorn_pallas\nsolver_iters: 20\n"
+            "model_args: {encoder: visformer_micro_80,\n"
+            "             encoder_args: {use_pallas_attn: true, init_channels: 16,\n"
+            "                            embed_dim: 96, depth: [1, 1, 1]}}\n")
+    cfg.write_text(text)
+    argv = ["--config", str(cfg), "--episodes", "2", "--ep-per-batch", "2", "--device", "cpu"]
+    run_emd.main(argv)
+    out = capsys.readouterr().out
+    assert f"3-way 1-shot ({mode}): acc=" in out and "WARNING: no 'load'" in out
+    _checkpoints(tmp_path, "meta-baseline")
+    cfg.write_text(text + f"load_encoder: {tmp_path / 'max-va'}\n")
+    from_dir = run_emd.main(argv)
+    emd = _checkpoints(tmp_path, "deepemd")  # encoder entries only: the same encoder
+    cfg.write_text(text + f"load: {tmp_path / 'max_acc.pth'}\n")
+    from_pth = run_emd.main(argv)
+    assert "WARNING" not in capsys.readouterr().out
+    np.testing.assert_array_equal(from_dir, from_pth)
+    torch.save({"params": dict(emd.state_dict(), **{"fc.weight": torch.zeros(4, 192),
+                                                    "fc.bias": torch.zeros(4)})},
+               str(tmp_path / "max_acc.pth"))
+    with pytest.raises(ValueError, match="unconsumed torch tensors.*fc.bias"):
+        run_emd.main(argv)
 
 
 def test_entry_points_default_to_cuda():
