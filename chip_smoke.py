@@ -79,12 +79,32 @@ Phases, in order; any failure exits non-zero:
      classes x 600 PNGs at 32x32, resized to 80, CIFAR stats), each scored by
      ``eval.run`` from the ``.pth``; without PIL on the machine, the tiered
      split at 80x80 and ``protocol: raw`` only, and the script says so;
- 17. print the ``training``, ``eval_clis`` and kernels' JSON lines, then the
+ 17. (run right after phase 12, while its split is resident) the encoder
+     zoo's pretraining at the configs' geometry on phase 11's resident split (batch 512, cropaug, AdamW 5e-4 scaled by batch, cosine
+     warmup): ``nest_micro_v2_gpsa``, ``swin_micro_resembed_80``,
+     ``levit_micro_80`` (drop-path 0.5) and ``lvvit_micro_80`` at full
+     width, 3 steps in fp32 and 3 in bf16 each: finite losses, every
+     parameter and BN statistic moved, no kernel launched; steps/s and peak
+     memory; a checkpoint per family;
+ 18. ``eval.run`` over each of them, ``load_encoder:`` on its checkpoint, 400
+     episodes bf16, accuracies equal to in-process ``evaluate``; LeViT's
+     ``--fold-bn`` against unfolded in fp32 on the same episodes;
+ 19. ``configs/meta_tune_im800_resnet18.yaml``'s geometry: MetaBaseline over
+     ``resnet18`` from a reference-format ``.pth`` (loaded tensor for tensor),
+     ``freeze_bn``, 5-way 1-shot 15-query, 4 episodes a step, SGD 1e-3, 4
+     steps: BN statistics unchanged, parameters moved;
+ 20. every other registered encoder at full width, one batch of 640 images
+     at its own input size in fp32 and bf16: finite, the JAX package's
+     shapes, fp32 ms per batch; a reference-format ``.pth`` round trip per
+     family. No zoo path launches either kernel, as no zoo encoder reaches
+     a Pallas kernel in the JAX package;
+ 21. print the ``training``, ``eval_clis`` and kernels' JSON lines, then the
      result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
-SUN-D grid episode batch, and of one training step of each trainer.)
+SUN-D grid episode batch, of one training step of each trainer, and of one
+pretrain step of the slowest zoo family.)
 """
 
 from __future__ import annotations
@@ -147,6 +167,50 @@ LOADER_EPISODES = 1000
 # 100 here); CIFAR-FS's test split is 20 classes x 600 images at 32x32
 TIERED_TEST = {"n_classes": 160, "n_per_class": 100, "seed": 7}
 CIFAR_TEST = {"n_classes": 20, "n_per_class": 600, "image_size": 32, "seed": 8}
+# the encoder zoo: (encoder, its config's encoder_args, the config) of phase 17
+ZOO_PRETRAIN = (("nest_micro_v2_gpsa", {}, "pretrain_mini_nest.yaml"),
+                ("swin_micro_resembed_80", {}, "pretrain_tiered_swin.yaml"),
+                ("levit_micro_80", {"drop_path_rate": 0.5}, "pretrain_mini_levit.yaml"),
+                ("lvvit_micro_80", {}, "pretrain_mini_lvvit.yaml"))
+ZOO_PRE_STEPS = 3           # a counted run of each dtype, then a timed run of as many
+ZOO_EVAL_EPISODES = 400
+# the geometry of configs/meta_tune_im800_resnet18.yaml
+ZOO_META = {"way": 5, "shot": 1, "query": 15, "ep_per_batch": 4, "max_epoch": 50,
+            "optimizer": "sgd", "optimizer_args": {"lr": 1e-3, "weight_decay": 1e-4}}
+ZOO_META_STEPS = 4
+ZOO_BATCH = 640             # one eval-CLI batch: 8 episodes x 80 images
+# every other registered encoder -> (input edge, dense map shape, pooled width),
+# the JAX package's output shapes (jax.eval_shape of its apply)
+ZOO_SHAPES = {
+    "nest_nano_80": (80, (5, 5, 384), 384),
+    "nest_micro_80": (80, (5, 5, 512), 512),
+    "nest_micro_resembed_80": (80, (5, 5, 512), 512),
+    "nest_micro_resembed_2x_80": (80, (10, 10, 512), 512),
+    "nest_micro_resembed_ada_80": (80, (5, 5, 512), 512),
+    "nest_micro_v2_rel_80": (80, (5, 5, 512), 512),
+    "nest_12m_v3": (80, (5, 5, 512), 512),
+    "swin_nano_patch4_window5_80": (96, (3, 3, 512), 512),  # built for 96 px
+    "swin_micro_v2_resembed_ada_80": (80, (5, 5, 576), 576),
+    "deit_tiny_patch16_224": (224, (14, 14, 192), 192),
+    "deit_small_patch16_224": (224, (14, 14, 384), 384),
+    "deit_base_patch16_224": (224, (14, 14, 768), 768),
+    "deit_nano_patch16_224": (224, (14, 14, 224), 224),
+    "deit_nano_patch6_84": (84, (14, 14, 224), 224),
+    "deit_micro_patch6_84": (84, (14, 14, 272), 272),
+    "resnet50": (80, (3, 3, 2048), 2048),
+    "resnet12": (80, (5, 5, 512), 512),
+    "resnet12-wide": (80, (5, 5, 640), 640),
+    "resnet12-drop": (80, (10, 10, 640), 640),
+    "convnet4": (80, (5, 5, 64), 1600),
+}
+# one name per family for the reference-format .pth round trip
+ZOO_PTH = ("nest_micro_v2_rel_80", "swin_micro_v2_resembed_ada_80", "levit_micro_80",
+           "lvvit_micro_80", "deit_small_patch16_224", "resnet50", "resnet18", "resnet12-wide",
+           "resnet12-drop", "convnet4")
+# LeViT's first subsample adds a constant to the token stream that the next
+# subsample's BN-normed q and kv remove: its output bias has a true gradient
+# of 0, so an optimizer step may leave it where it was
+ZOO_STATIC = {"levit_micro_80": ("encoder.blocks.2.proj.1.bn.bias",)}
 
 
 def _fail(msg: str) -> None:
@@ -469,15 +533,16 @@ def _is_bn_stat(key: str) -> bool:
     return key.endswith("running_mean") or key.endswith("running_var")
 
 
-def _check_moved(label, module, before, bn_frozen):
-    """Every parameter changed; every BN running statistic bit-identical when
-    ``bn_frozen``, changed otherwise."""
+def _check_moved(label, module, before, bn_frozen, static=()):
+    """Every parameter changed (but those in ``static``, whose true gradient
+    is 0); every BN running statistic bit-identical when ``bn_frozen``,
+    changed otherwise."""
     import torch
 
     params = {k for k, _ in module.named_parameters()}
     for k, v in module.state_dict().items():
         same = torch.equal(v, before[k])
-        if k in params and same:
+        if k in params and same and k not in static:
             _fail(f"{label}: parameter {k} did not change")
         if _is_bn_stat(k) and same != bn_frozen:
             _fail(f"{label}: BN statistic {k} {'changed' if bn_frozen else 'did not change'}")
@@ -1529,10 +1594,29 @@ def _loaders(dev, tmp, pth, tag):
 
     entry, counts = {"pil": has_pil}, {}
     n_batches = math.ceil(LOADER_EPISODES / CLI_EP_PER_BATCH)
-    for name, (args, desc) in splits.items():
+    made = {}  # the split the eval CLI loads, kept: each split is read once
+
+    def make_once(name, **kw):
         t0 = time.perf_counter()
-        ds = datasets.make(name, **args)
-        load_s = time.perf_counter() - t0
+        made[name] = datasets.__class__.make(datasets, name, **kw)
+        made[name + "_s"] = time.perf_counter() - t0
+        return made[name]
+
+    for name, (args, desc) in splits.items():
+        cfg = {"dataset": name, "dataset_args": args, "encoder": ENCODER,
+               "model_args": {"encoder_args": {"use_pallas_attn": True}}, "load": pth}
+        path = _write_cfg(tmp, f"eval_{name}", cfg)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        datasets.make = make_once
+        try:
+            accs, _ = _cli(eval_run, ["--config", path, "--episodes", str(LOADER_EPISODES),
+                                      "--fold-bn", "--bf16", "--device", str(dev)])
+        finally:
+            del datasets.make
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ds, load_s = made.pop(name), made.pop(name + "_s")
         n_cls = TIERED_TEST["n_classes"] if name == "tiered-imagenet" else CIFAR_TEST["n_classes"]
         if ds.images.shape[1:] != (80, 80, 3) or ds.n_classes != n_cls:
             _fail(f"{name}: loaded {ds.images.shape}, {ds.n_classes} classes")
@@ -1541,15 +1625,6 @@ def _loaders(dev, tmp, pth, tag):
             _fail("cifar-fs: not the CIFAR normalization stats")
         if name == "tiered-imagenet" and not has_pil and not np.array_equal(ds.images, want_raw):
             _fail("tiered-imagenet raw: the BGR -> RGB flip did not restore the images")
-        cfg = {"dataset": name, "dataset_args": args, "encoder": ENCODER,
-               "model_args": {"encoder_args": {"use_pallas_attn": True}}, "load": pth}
-        path = _write_cfg(tmp, f"eval_{name}", cfg)
-        _zero_counts(fused_mhsa, sinkhorn_pallas)
-        t0 = time.perf_counter()
-        accs, _ = _cli(eval_run, ["--config", path, "--episodes", str(LOADER_EPISODES),
-                                  "--fold-bn", "--bf16", "--device", str(dev)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         counts[f"eval_cli_{name}"] = _expect_counts(f"eval CLI on {name}", "tensor_core",
                                                     _mhsa_per_forward() * n_batches)
         if accs.shape != (LOADER_EPISODES,) or not ((accs >= 0) & (accs <= 1)).all():
@@ -1566,11 +1641,297 @@ def _loaders(dev, tmp, pth, tag):
         if not np.array_equal(accs, want):
             _fail(f"eval CLI on {name} and in-process evaluate disagree")
         print(f"loader {tag} {name} ({desc}, to 80x80): load {load_s:.2f} s; eval CLI "
-              f"{LOADER_EPISODES} episodes --fold-bn --bf16: wall {wall:.2f} s; in-process "
+              f"{LOADER_EPISODES} episodes --fold-bn --bf16: wall {wall:.2f} s (the load "
+              f"included); in-process "
               f"evaluate of the same episodes {eps:.1f} episodes/s; launches "
               f"{counts[f'eval_cli_{name}']}")
         entry[name] = {"load_s": load_s, "cli_wall_s": wall, "episodes_per_s": eps}
         del ds, head, images_dev
+    return entry, counts
+
+
+def _zoo_pretrain(dev, mini, images_dev, labels_dev, tag, profile, card, tmp):
+    """Phase 17. Returns (training entry, launch counts, checkpoint per family)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.checkpoint.io import save_variables
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.augment import make_cropaug_fn
+    from fewshot_vit_tpu_torch.heads import classifier as _classifier  # noqa: F401
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train.loop import make_pretrain_epoch
+    from fewshot_vit_tpu_torch.train.runner import build_optimizer
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    bs = PRE_TRAIN["batch_size"]
+    fn = make_pretrain_epoch(make_cropaug_fn(mini.mean, mini.std, out_size=80), mini.mean,
+                             mini.std)
+
+    def make(name, args, dtype):
+        model = models.make("classifier", encoder=name, encoder_args=dict(args),
+                            classifier_args={"n_classes": mini.n_classes}, dtype=dtype,
+                            device=dev, seed=0)
+        state = TrainState(model, build_optimizer(Config(PRE_TRAIN), model.parameters(), bs))
+        state.optimizer.set_epoch(6)  # past the warmup
+        return model, state
+
+    def run(state, steps, epoch):
+        return fn(state, images_dev, labels_dev, _steps_idx(len(mini), steps, epoch, dev),
+                  (0, epoch))["loss"].cpu().numpy()
+
+    entry, counts, ckpts = {}, {}, {}
+    for name, args, config in ZOO_PRETRAIN:
+        e = entry[name] = {"config": f"configs/{config}", "steps_per_s": {}, "peak_gib": {},
+                           "losses": {}}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            model, state = make(name, args, dtype)
+            before = _state_copy(model)
+            n_bn = sum(_is_bn_stat(k) for k in before)
+            _zero_counts(fused_mhsa, sinkhorn_pallas)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses = run(state, ZOO_PRE_STEPS, 1)
+            warm = time.perf_counter() - t0
+            if not np.isfinite(losses).all():
+                _fail(f"zoo pretrain {name} {dn}: a loss is not finite: {losses}")
+            _check_moved(f"zoo pretrain {name} {dn}", model, before, bn_frozen=False,
+                         static=ZOO_STATIC.get(name, ()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(state, ZOO_PRE_STEPS, 2)
+            rate = ZOO_PRE_STEPS / (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts[f"zoo_pretrain_{name}_{dn}"] = _expect_counts(
+                f"zoo pretrain {name} {dn}", "general", 0)
+            print(f"zoo pretrain {tag} {name} {dn} (configs/{config}: {bs} images a step, "
+                  f"cropaug, encoder_args {args}): losses {losses.tolist()} ({warm:.2f} s with "
+                  f"warm-up), then {rate:.3f} steps/s over {ZOO_PRE_STEPS} steps, peak memory "
+                  f"{peak:.2f} GiB; every parameter and {n_bn} BN statistics moved; kernel "
+                  f"launches 0")
+            e["steps_per_s"][dn], e["peak_gib"][dn], e["losses"][dn] = rate, peak, losses.tolist()
+            if dtype == torch.float32:  # phase 18's weights
+                ckpts[name] = os.path.join(tmp, f"zoo_{name}")
+                save_variables(ckpts[name], model.state_dict(),
+                               {"model": "classifier", "n_classes": mini.n_classes,
+                                "encoder": name})
+            del model, state
+            torch.cuda.empty_cache()
+    slowest = min(entry, key=lambda n: entry[n]["steps_per_s"]["float32"])
+    if profile:
+        _, state = make(slowest, dict(ZOO_PRETRAIN[[z[0] for z in ZOO_PRETRAIN].index(slowest)][1]),
+                        torch.float32)
+        run(state, 1, 3)
+        _profile_to(os.path.join(profile, "profile_train_zoo_pretrain.txt"), card,
+                    lambda: run(state, 1, 4))
+        del state
+        torch.cuda.empty_cache()
+    return {"zoo_pretrain": entry, "zoo_pretrain_slowest": slowest}, counts, ckpts
+
+
+def _zoo_eval(dev, ds, images_dev, ckpts, tag, tmp):
+    """Phase 18. Returns (entry, launch counts per path)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.rng import DEFAULT_SEED
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval.episodic import evaluate
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+
+    data = {"n_classes": 20, "n_per_class": 600, "image_size": 80, "seed": 0}
+    entry, counts = {}, {}
+    for name, args, _ in ZOO_PRETRAIN:
+        cfg = {"dataset": "synthetic", "dataset_args": data, "encoder": name,
+               "model_args": {"encoder_args": args}, "load_encoder": ckpts[name]}
+        path = _write_cfg(tmp, f"zoo_eval_{name}", cfg)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        accs, text = _cli(eval_run, ["--config", path, "--episodes", str(ZOO_EVAL_EPISODES),
+                                     "--bf16", "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[f"zoo_eval_cli_{name}"] = _expect_counts(f"zoo eval CLI {name}", "general", 0)
+        if "WARNING" in text or accs.shape != (ZOO_EVAL_EPISODES,):
+            _fail(f"zoo eval CLI {name}: random weights or malformed accuracies")
+        head = eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, _, want = evaluate(head, ds, n_episodes=ZOO_EVAL_EPISODES,
+                              ep_per_batch=CLI_EP_PER_BATCH, seed=DEFAULT_SEED,
+                              images_dev=images_dev, device=dev)
+        eps = ZOO_EVAL_EPISODES / (time.perf_counter() - t0)
+        if not np.array_equal(accs, want):
+            _fail(f"zoo eval CLI {name} and in-process evaluate disagree")
+        print(f"zoo eval CLI {tag} {name}, load_encoder: its phase-17 checkpoint, "
+              f"{ZOO_EVAL_EPISODES} episodes bf16: wall {wall:.2f} s, acc {m:.4f}; in-process "
+              f"evaluate of the same head and episodes {eps:.1f} episodes/s, accuracies equal; "
+              f"kernel launches 0")
+        entry[name] = {"cli_wall_s": wall, "episodes_per_s": eps, "acc": m}
+        del head
+        if name != "levit_micro_80":
+            continue
+        accs = {}
+        for fold in (True, False):
+            _zero_counts(fused_mhsa, sinkhorn_pallas)
+            accs[fold], _ = _cli(eval_run, ["--config", path, "--episodes",
+                                            str(ZOO_EVAL_EPISODES), "--device", str(dev)]
+                                 + (["--fold-bn"] if fold else []))
+            counts[f"zoo_eval_cli_{name}_fp32_{'fold' if fold else 'unfolded'}"] = \
+                _expect_counts(f"zoo eval CLI {name} fp32", "general", 0)
+        differ = float((accs[True] != accs[False]).mean())
+        mean_d = float(np.abs(accs[True] - accs[False]).mean())
+        print(f"zoo eval CLI {name} fp32 (TF32 off), --fold-bn vs unfolded, the same "
+              f"{ZOO_EVAL_EPISODES} episodes: episodes differing={differ:.4f}, "
+              f"mean|dacc|={mean_d:.5f} (limits 0.01, 0.005)")
+        if differ > 0.01 or mean_d > 0.005:
+            _fail("LeViT --fold-bn and unfolded disagree")
+        entry[name].update({"fold_vs_unfolded_fp32_differing": differ,
+                            "fold_vs_unfolded_fp32_mean_abs_d": mean_d})
+    torch.cuda.empty_cache()
+    return entry, counts
+
+
+def _reference_sd(module):
+    """A module's state dict on the CPU as the reference saves it: plus each
+    BN's ``num_batches_tracked`` and the static index and mask buffers."""
+    import torch
+
+    from fewshot_vit_tpu_torch.checkpoint.reference import _BUFFERS
+
+    sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    out = dict(sd)
+    for k in sd:
+        if k.endswith("running_var"):
+            out[k[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(300)
+    for name, buf in module.named_buffers():
+        if name.endswith(_BUFFERS) and name not in out and buf is not None:
+            out[name] = buf.detach().cpu()
+    return sd, out
+
+
+def _zoo_meta_tune(dev, ds, images_dev, tag, tmp):
+    """Phase 19. Returns (training entry, launch counts)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.sampler import EpisodeSampler
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train.loop import make_meta_tune_epoch
+    from fewshot_vit_tpu_torch.train.runner import build_optimizer, load_encoder_from_checkpoint
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    c = ZOO_META
+    way, shot, query, epb = c["way"], c["shot"], c["query"], c["ep_per_batch"]
+    # a seeded ResNet-18 with non-trivial BN statistics, written as the
+    # reference's classifier pretraining writes it
+    src = models.make("resnet18", device=dev, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    with torch.no_grad():
+        for name, buf in src.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0.0, 0.1, generator=gen)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 2.0, generator=gen)
+    sd, file_sd = _reference_sd(src)
+    del src
+    pth = os.path.join(tmp, "resnet18_im800.pth")
+    torch.save({"model": "classifier", "model_args": {"encoder": "resnet18"},
+                "model_sd": {**{f"encoder.{k}": v for k, v in file_sd.items()},
+                             "classifier.linear.weight": torch.zeros(800, 512),
+                             "classifier.linear.bias": torch.zeros(800)}}, pth)
+    head = models.make("meta-baseline", encoder="resnet18", device=dev, seed=0)
+    load_encoder_from_checkpoint(pth, head.encoder, "resnet18")
+    got = head.encoder.state_dict()
+    if sorted(got) != sorted(sd) or not all(torch.equal(got[k].cpu(), v) for k, v in sd.items()):
+        _fail("resnet18: the encoder loaded from the reference .pth differs from the source")
+    state = TrainState(head, build_optimizer(Config(c), head.parameters()))
+    state.optimizer.set_epoch(0)
+    sampler = EpisodeSampler(ds.labels, ZOO_META_STEPS, way, shot + query, epb)
+    idx = np.stack(list(sampler.epoch(rng_mod.np_rng(0, 1)))).astype(np.int64)
+    fn = make_meta_tune_epoch(way, shot, query, epb, freeze_bn=True, mean=ds.mean, std=ds.std)
+    before = _state_copy(head)
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    losses = fn(state, images_dev, torch.from_numpy(idx).to(dev), (0, 1))["loss"].cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = {"zoo_meta_tune_resnet18": _expect_counts("resnet18 meta-tune", "general", 0)}
+    if not np.isfinite(losses).all():
+        _fail(f"resnet18 meta-tune: a loss is not finite: {losses}")
+    _check_moved("resnet18 meta-tune, freeze_bn", head, before, bn_frozen=True)
+    print(f"zoo meta-tune {tag} resnet18 (configs/meta_tune_im800_resnet18.yaml's geometry): "
+          f"load_encoder: a reference .pth ({len(file_sd)} tensors with "
+          f"{len(file_sd) - len(sd)} num_batches_tracked, and a classifier) loaded tensor for "
+          f"tensor; freeze_bn, {way}-way {shot}-shot {query}-query, {epb} episodes a step, "
+          f"SGD 1e-3: {ZOO_META_STEPS} steps, losses {losses.tolist()}, {wall:.2f} s with "
+          f"warm-up; every BN statistic bit-identical, every parameter moved; kernel launches 0")
+    del head, state
+    torch.cuda.empty_cache()
+    return {"zoo_meta_tune_resnet18": {"losses": losses.tolist(), "wall_s": wall}}, counts
+
+
+def _zoo_forward(dev, tag, tmp):
+    """Phase 20. Returns (entry, launch counts per path)."""
+    import torch
+
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train.runner import load_encoder_from_checkpoint
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    entry, counts = {}, {}
+    for name, (size, dense_shape, width) in ZOO_SHAPES.items():
+        x = torch.randn(ZOO_BATCH, size, size, 3, generator=gen, device=dev)
+        e = entry[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            enc = models.make(name, dtype=dtype, device=dev, seed=0)
+            _zero_counts(fused_mhsa, sinkhorn_pallas)
+            with torch.inference_mode():
+                dense, pooled = enc(x)
+                if dtype == torch.float32:
+                    e["fp32_ms"] = _time_ms(lambda: enc(x), reps=2, warm=1)
+            counts[f"zoo_forward_{name}_{dn}"] = _expect_counts(f"zoo forward {name}", "general",
+                                                                0)
+            if (tuple(dense.shape) != (ZOO_BATCH, *dense_shape)
+                    or tuple(pooled.shape) != (ZOO_BATCH, width)):
+                _fail(f"zoo forward {name} {dn}: shapes {tuple(dense.shape)} "
+                      f"{tuple(pooled.shape)}, the JAX package's {dense_shape} {width}")
+            if not (torch.isfinite(dense).all() and torch.isfinite(pooled).all()):
+                _fail(f"zoo forward {name} {dn}: an output is not finite")
+            del enc, dense, pooled
+        print(f"zoo forward {tag} {name}: {ZOO_BATCH} images at {size}x{size}, fp32 and bf16 "
+              f"finite, dense {dense_shape}, pooled {width} as the JAX package's; fp32 "
+              f"{e['fp32_ms']:.2f} ms a batch; kernel launches 0")
+        del x
+        torch.cuda.empty_cache()
+    for name in ZOO_PTH:
+        src = models.make(name, device=dev, seed=1)
+        sd, file_sd = _reference_sd(src)
+        del src
+        path = os.path.join(tmp, f"zoo_{name}.pth")
+        torch.save({"model": "classifier",
+                    "model_sd": {f"encoder.{k}": v for k, v in file_sd.items()}}, path)
+        enc = load_encoder_from_checkpoint(path, models.make(name, device=dev, seed=2), name)
+        got = enc.state_dict()
+        if sorted(got) != sorted(sd) or not all(torch.equal(got[k].cpu(), v)
+                                                for k, v in sd.items()):
+            _fail(f"zoo .pth {name}: the loaded state dict differs from the source")
+        print(f"zoo .pth {name}: {len(file_sd)} tensors with {len(file_sd) - len(sd)} reference "
+              f"buffers loaded through its key rule, tensor for tensor")
+        del enc
+        os.remove(path)
+    torch.cuda.empty_cache()
     return entry, counts
 
 
@@ -1804,12 +2165,24 @@ def main() -> int:
                                           images_dev, tag, args.profile, card, ckpt)
         sun, sun_counts = _train_sun(dev, mini, mini_dev, mini_labels, tag, args.profile, card,
                                      ckpt)
+        # phases 17-18: the encoder zoo on the same resident split
+        zoo, zoo_launches, zoo_ckpts = _zoo_pretrain(dev, mini, mini_dev, mini_labels, tag,
+                                                     args.profile, card, tmp)
+        del mini_dev, mini_labels
+        torch.cuda.empty_cache()
+        zoo_eval, counts = _zoo_eval(dev, ds, images_dev, zoo_ckpts, tag, tmp)
+        zoo_launches.update(counts)
+        # phases 19-20: the ResNet-18 meta-tune from a .pth, every other encoder
+        meta, counts = _zoo_meta_tune(dev, ds, images_dev, tag, tmp)
+        zoo.update(meta)
+        zoo_launches.update(counts)
+        zoo["zoo_forward"], counts = _zoo_forward(dev, tag, tmp)
+        zoo_launches.update(counts)
     training.update(pre)
     training.update(sun)
+    training.update(zoo)
     train_launches.update(pre_counts)
     train_launches.update(sun_counts)
-    del mini_dev, mini_labels
-    torch.cuda.empty_cache()
     eval_launches = _run_cli_chain(tag, dev)
 
     # phases 14-16: the eval CLIs from a reference .pth, --sauc, the loaders
@@ -1825,6 +2198,10 @@ def main() -> int:
             for path, c in train_launches.items()}
         entry["eval_cli_launches"] = {path: sum(c[entry["name"]].values())
                                       for path, c in eval_launches.items()}
+        # the encoder zoo reaches no kernel, in either package
+        entry["zoo_launches"] = {path: sum(c[entry["name"]].values())
+                                 for path, c in zoo_launches.items()}
+    clis["zoo"] = zoo_eval
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"eval_clis": clis, "card": card}))

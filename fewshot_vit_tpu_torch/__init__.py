@@ -25,7 +25,13 @@ Ported so far:
     with the device-side augmentation zoo, SAM, EMA, chunked staging) and
     ``train.sun`` (SUN meta-training: a frozen token-label teacher, whose
     stage-2 attention runs through the fused-MHSA kernel in every step,
-    labels the student's patches).
+    labels the student's patches);
+  * slice 6: reference ``.pth`` and checkpoint loading in both eval CLIs,
+    ``--sauc`` and the rest of the datasets;
+  * slice 7, the rest of the encoder zoo (NesT, Swin, LeViT, LV-ViT, DeiT,
+    ResNet-18/50, ResNet-12 and its DropBlock variant, ConvNet-4), each
+    family's flax and reference ``.pth`` key rule, and the LeViT and
+    ResNet-12 BN folds; the zoo runs no custom kernel, as in JAX.
 
 Entry points (``models.make``, ``eval.episodic.evaluate``/``encode_dataset``,
 ``eval.emd_eval.evaluate_emd``, and ``python -m fewshot_vit_tpu_torch.X`` for

@@ -1,13 +1,13 @@
 """Reference ``.pth`` checkpoints -> the port's modules (counterpart:
 ``fewshot_vit_tpu/checkpoint/io.py`` ``load_torch_state_dict`` ..
-``load_reference_encoder_checkpoint`` and the Visformer part of
+``load_reference_encoder_checkpoint`` and ``convert_by_rule`` of
 ``checkpoint/torch_convert.py``).
 
 The reference saves ``{"model", "model_args", "model_sd"}`` dicts (SUN-D:
 ``{"params": state_dict}`` with ``module.`` prefixes). The port's state-dict
-keys already follow the reference's names for the Visformer family
-(``from_flax.visformer_key``), so ingestion is a relabelling under the
-contract of the JAX package's ``convert_by_rule``:
+keys already follow the reference's names for every encoder family (the
+outputs of ``from_flax``'s key rules), so ingestion is a relabelling under
+the contract of the JAX package's ``convert_by_rule``:
 
   * every entry of the port module's state dict is filled from the key its
     rule names, or this raises ``KeyError``;
@@ -16,8 +16,9 @@ contract of the JAX package's ``convert_by_rule``:
     change raises;
   * shapes are checked;
   * every torch tensor is consumed once, except the non-learned buffers
-    (``num_batches_tracked`` ..., which the port's BatchNorm does not hold);
-    any other leftover raises "unconsumed torch tensors".
+    (``num_batches_tracked``, ``relative_position_index``, ``attn_mask``,
+    ``attention_bias_idxs``, which the port holds as non-persistent buffers
+    or not at all); any other leftover raises "unconsumed torch tensors".
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+
+from .from_flax import ENCODER_KEY_FNS as _FLAX_KEY_FNS
 
 # non-learned buffers, plus 'adapool.weight', a dead reference parameter
 # (the JAX package's convert_by_rule skips the same suffixes)
@@ -64,18 +67,15 @@ def strip_prefix(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch
     return out
 
 
-def visformer_key(key: str, prefix: str = "") -> str:
-    """Port key -> reference key for the Visformer family: the same name,
-    since the port's modules are laid out as the reference's."""
+def same_key(key: str, prefix: str = "") -> str:
+    """Port key -> reference key: the same name, since the port's modules are
+    laid out as the reference's."""
     return prefix + key
 
 
-# encoder registry name -> torch key rule; the port holds the Visformer
-# family only (the JAX package's table also lists ResNet, ConvNet4, NesT,
-# Swin, LeViT, LV-ViT and DeiT rules)
-ENCODER_KEY_FNS: Dict[str, KeyFn] = {
-    name: visformer_key
-    for name in ("visformer_micro_80", "visformer_tiny_80", "visformer_small", "net5_80")}
+# encoder registry name -> torch key rule, for every encoder the JAX
+# package's table names
+ENCODER_KEY_FNS: Dict[str, KeyFn] = {name: same_key for name in _FLAX_KEY_FNS}
 
 
 def encoder_key_fn_for(encoder_name: str) -> KeyFn:
@@ -84,17 +84,15 @@ def encoder_key_fn_for(encoder_name: str) -> KeyFn:
     try:
         return ENCODER_KEY_FNS[encoder_name]
     except KeyError:
-        raise KeyError(
-            f"no torch key rule for encoder {encoder_name!r}; known: "
-            f"{sorted(ENCODER_KEY_FNS)} (the other encoder families come with "
-            "ROADMAP.md, item e of the order list)") from None
+        raise KeyError(f"no torch key rule for encoder {encoder_name!r}; known: "
+                       f"{sorted(ENCODER_KEY_FNS)}") from None
 
 
 def head_key_fn(encoder_key_fn: Optional[KeyFn] = None) -> KeyFn:
     """Torch-key rule of a head-wrapped model: encoder entries through the
     encoder's rule under ``encoder.``; ``temp``, ``fc`` and the classifiers
     (``classifier.linear`` ...) under their own names."""
-    enc_fn = encoder_key_fn or visformer_key
+    enc_fn = encoder_key_fn or same_key
 
     def key_fn(key: str) -> str:
         if key.startswith("encoder."):
@@ -156,6 +154,6 @@ def load_reference_encoder_checkpoint(path: str, encoder: nn.Module,
     sd, _ = load_torch_state_dict(path)
     enc_sd = strip_prefix(sd, "encoder.") or sd
     encoder.load_state_dict(
-        convert_by_rule(encoder.state_dict(), enc_sd, encoder_key_fn or visformer_key),
+        convert_by_rule(encoder.state_dict(), enc_sd, encoder_key_fn or same_key),
         strict=True)
     return encoder

@@ -18,7 +18,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.registry import models
-from ..models import visformer as _visformer  # noqa: F401  (registers the encoders)
+from .. import models as _models  # noqa: F401  (registers the encoders)
 from ..models.common import trunc_normal_
 from ..ops.metric import compute_logits
 

@@ -30,7 +30,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.registry import models
 from ..core.rng import DEFAULT_SEED
-from ..models import visformer as _visformer  # noqa: F401  (registers the encoders)
+from .. import models as _models  # noqa: F401  (registers the encoders)
 from ..ops.emd import emd_distance, normalize_weights, sinkhorn
 from ..ops.metric import l2_normalize
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Iterator, Optional
+from typing import Any, Iterable, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +33,8 @@ _bn_frozen: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "fewshot_vit_bn_frozen", default=False)
 _generator: contextvars.ContextVar[Optional[torch.Generator]] = contextvars.ContextVar(
     "fewshot_vit_mask_generator", default=None)
+_injected: contextvars.ContextVar[Optional[Iterator[torch.Tensor]]] = contextvars.ContextVar(
+    "fewshot_vit_injected_draws", default=None)
 
 
 @contextlib.contextmanager
@@ -65,8 +67,35 @@ def draws_from(generator: Optional[torch.Generator]) -> Iterator[None]:
         _generator.reset(token)
 
 
+@contextlib.contextmanager
+def injected_draws(masks: Iterable[torch.Tensor]) -> Iterator[None]:
+    """Within this context every Bernoulli draw of the forward (``Dropout``,
+    ``DropPath``, ``DropBlock``) takes the next of ``masks`` (bool, True where
+    the draw succeeded) instead of drawing, in call order: the parity tests
+    replay another framework's draws through it. A mask of the wrong shape
+    raises."""
+    token = _injected.set(iter(masks))
+    try:
+        yield
+    finally:
+        _injected.reset(token)
+
+
 def _uniform(shape, like: torch.Tensor) -> torch.Tensor:
     return torch.rand(shape, generator=_generator.get(), device=like.device, dtype=torch.float32)
+
+
+def bernoulli(p, shape, like: torch.Tensor) -> torch.Tensor:
+    """A bool draw of ``shape``, True with probability ``p`` (a float or a
+    0-d tensor), on ``like``'s device; the next injected mask inside
+    ``injected_draws``."""
+    masks = _injected.get()
+    if masks is not None:
+        mask = next(masks)
+        if tuple(mask.shape) != tuple(shape):
+            raise ValueError(f"injected draw of shape {tuple(mask.shape)}, expected {tuple(shape)}")
+        return mask.to(device=like.device, dtype=torch.bool)
+    return _uniform(shape, like) < p
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +117,13 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> to
     return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init, ``variance_scaling(1, fan_in,
+    truncated_normal)``, over a torch layout (fan_in = I * kh * kw)."""
+    std = math.sqrt(1.0 / math.prod(t.shape[1:])) / 0.87962566103423978
+    return trunc_normal_(t, std, generator)
+
+
 def kaiming_out_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Kaiming normal, fan_out, relu gain: std = sqrt(2 / (O * kh * kw))."""
     fan_out = t.shape[0] * math.prod(t.shape[2:])
@@ -97,16 +133,18 @@ def kaiming_out_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 class Conv(nn.Module):
     """A conv over NHWC input with an OIHW ``weight``. A 1x1 stride-1 conv is
-    the dense layer over the channel axis it equals (``F.linear``)."""
+    the dense layer over the channel axis it equals (``F.linear``). ``init``
+    names the kernel init ``init_weights`` applies (``INITS``)."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  padding: int = 0, groups: int = 1, bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, init: str = "kaiming"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
+        self.init = init
         self.pointwise = k == 1 and stride == 1 and groups == 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,6 +155,59 @@ class Conv(nn.Module):
             return F.linear(x, w.flatten(1), b)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+class Linear(nn.Module):
+    """flax's ``Dense`` over the last axis with an ``nn.Linear`` weight
+    (O, I): input and weights cast to ``dtype``, output in ``dtype``."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, init: str = "trunc"):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.dtype = dtype
+        self.init = init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+INITS = {
+    "trunc": lambda t, g: trunc_normal_(t, 0.02, g),  # trunc_normal_init(0.02)
+    "kaiming": kaiming_out_,                         # kaiming_out_init
+    "lecun": lecun_normal_,                          # flax's default
+}
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw every ``Conv`` / ``Linear`` kernel of ``module`` with its own
+    ``init``, in module order; biases stay 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv, Linear)):
+                INITS[m.init](m.weight, generator)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``LayerNorm`` over the last axis: fp32 statistics and affine,
+    output in ``dtype``; ``weight`` / ``bias`` as ``nn.LayerNorm``."""
+
+    def __init__(self, c: int, eps: float, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.eps, self.dtype = eps, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+def max_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """NHWC max-pool; padding is -inf, as flax's ``max_pool``."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding).permute(0, 2, 3, 1)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -138,9 +229,11 @@ class FrozenBatchNorm(nn.Module):
 
 
 class BatchNorm2d(FrozenBatchNorm):
-    """BatchNorm over NHWC that follows flax's ``nn.BatchNorm``: in eval mode,
-    or inside ``frozen_bn()``, the ``FrozenBatchNorm`` affine; in training mode
-    batch statistics in fp32 over (B, H, W), the variance as
+    """BatchNorm over the channel (last) axis that follows flax's
+    ``nn.BatchNorm``: in eval mode, or inside ``frozen_bn()``, the
+    ``FrozenBatchNorm`` affine; in training mode batch statistics in fp32 over
+    every other axis ((B, H, W) of NHWC, (B, N) of LeViT's tokens), the
+    variance as
     ``E[x^2] - E[x]^2`` clamped at 0, and running statistics updated with
     momentum 0.1 from the BIASED batch variance (``torch.nn.BatchNorm2d``
     stores the unbiased one; the JAX package is the reference here)."""
@@ -149,8 +242,9 @@ class BatchNorm2d(FrozenBatchNorm):
         if bn_uses_running_stats(self.training):
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, BN_MOMENTUM)
             self.running_var.lerp_(var, BN_MOMENTUM)
@@ -172,7 +266,7 @@ class Dropout(nn.Module):
             return x
         keep = 1.0 - self.rate
         if mask is None:
-            mask = _uniform(x.shape, x) < keep
+            mask = bernoulli(keep, x.shape, x)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -184,7 +278,7 @@ class DropPath(Dropout):
         if self.rate == 0.0 or not self.training:
             return x
         if mask is None:
-            mask = _uniform((x.shape[0],) + (1,) * (x.dim() - 1), x) < 1.0 - self.rate
+            mask = bernoulli(1.0 - self.rate, (x.shape[0],) + (1,) * (x.dim() - 1), x)
         return super().forward(x, mask)
 
 
@@ -198,3 +292,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(x)
+
+
+class Foldable:
+    """For the encoders with a BN folder (``models/fold.py``): ``clone`` and
+    the guard that keeps a ``fold_bn`` encoder out of training mode. The
+    encoder keeps its constructor arguments in ``self.config``."""
+
+    def clone(self, **overrides: Any):
+        """A freshly initialized encoder of this one's config, on its device."""
+        device = next(self.parameters()).device
+        return type(self)(**{**self.config, **overrides}, device=device)
+
+    def train(self, mode: bool = True):
+        if mode and self.config["fold_bn"]:
+            raise ValueError("a fold_bn encoder has no BatchNorm left to train; "
+                             "build it with fold_bn=False for training")
+        return super().train(mode)

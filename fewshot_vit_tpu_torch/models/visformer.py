@@ -28,7 +28,6 @@ from __future__ import annotations
 from typing import Any, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
@@ -40,10 +39,12 @@ from .common import (
     Conv,
     DropPath,
     Dropout,
+    Foldable,
     gelu,
     global_avg_pool,
     kaiming_out_,
     leaky_relu,
+    max_pool,
     trunc_normal_,
 )
 
@@ -67,7 +68,7 @@ class ConvStem(nn.Module):
         out = leaky_relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         out = leaky_relu(out + self.downsample(x))
-        return F.max_pool2d(out.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+        return max_pool(out, 2, 2)
 
 
 class Mlp(nn.Module):
@@ -178,7 +179,7 @@ def drop_path_ladder(rate: float, total: int) -> list:
     return [rate * i / max(total - 1, 1) for i in range(total)]
 
 
-class Visformer(nn.Module):
+class Visformer(Foldable, nn.Module):
     """3-stage conv-attention hybrid; ``forward -> (dense NHWC, pooled)``.
 
     ``use_pallas_attn`` keeps the JAX package's name so ``encoder_args``
@@ -264,17 +265,6 @@ class Visformer(nn.Module):
             elif p.dim() == 4:
                 kaiming_out_(p, gen)
         self.to(device).eval()
-
-    def clone(self, **overrides: Any) -> "Visformer":
-        """A freshly initialized Visformer with this one's config, on its device."""
-        device = next(self.parameters()).device
-        return Visformer(**{**self.config, **overrides}, device=device)
-
-    def train(self, mode: bool = True) -> "Visformer":
-        if mode and self.fold_bn:
-            raise ValueError("a fold_bn encoder has no BatchNorm left to train; "
-                             "build it with fold_bn=False for training")
-        return super().train(mode)
 
     def forward(self, x: torch.Tensor):
         x = self.stem(x) if hasattr(self, "stem") else self.patch_embed1(x)

@@ -136,8 +136,8 @@ def load_encoder_from_checkpoint(path: str, encoder: nn.Module,
     parameters and ``temp`` discarded (the reference's ``load_encoder``): a
     port directory (keys under ``encoder.``, a ``resume`` directory's
     ``model``, or a bare encoder), or a reference ``.pth`` through
-    ``checkpoint.reference`` with the key rule of ``encoder_name`` (default:
-    the Visformer rule)."""
+    ``checkpoint.reference`` with the key rule of ``encoder_name`` (any
+    family of the zoo; default: the port's own names)."""
     if is_pth(path):
         key_fn = encoder_key_fn_for(encoder_name) if encoder_name else None
         return load_reference_encoder_checkpoint(path, encoder, key_fn)

@@ -18,6 +18,7 @@ from fewshot_vit_tpu_torch.checkpoint import (
 from fewshot_vit_tpu_torch.core.config import Config, load_config
 from fewshot_vit_tpu_torch.core.log import Averager, RunLogger, Timer, compute_n_params, time_str
 from fewshot_vit_tpu_torch.heads.meta_baseline import MetaBaseline
+from fewshot_vit_tpu_torch.models.resnet12 import ResNet12
 from fewshot_vit_tpu_torch.models.visformer import Visformer
 from fewshot_vit_tpu_torch.train.optim import make_optimizer
 from fewshot_vit_tpu_torch.train.runner import load_encoder_from_checkpoint
@@ -105,8 +106,17 @@ def test_load_encoder_from_checkpoint_and_pth_refusal(tmp_path):
     torch.save(bad, str(tmp_path / "bad.pth"))
     with pytest.raises(ValueError, match="unconsumed torch tensors"):
         load_encoder_from_checkpoint(str(tmp_path / "bad.pth"), enc)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        load_encoder_from_checkpoint(str(tmp_path / "teacher.pth"), enc, "resnet12")
+    # a ResNet-12 teacher's .pth loads through its family's rule
+    res = ResNet12(channels=(4, 8, 8, 8), device="cpu", seed=1)
+    torch.save({"model": "classifier", "model_sd": {
+        **{f"encoder.{k}": v for k, v in res.state_dict().items()},
+        "encoder.layer1.bn1.num_batches_tracked": torch.tensor(3),
+        "classifier.linear.weight": torch.ones(3, 8)}}, str(tmp_path / "resnet12.pth"))
+    res2 = load_encoder_from_checkpoint(str(tmp_path / "resnet12.pth"),
+                                        ResNet12(channels=(4, 8, 8, 8), device="cpu", seed=2),
+                                        "resnet12")
+    for k, v in res.state_dict().items():
+        assert torch.equal(res2.state_dict()[k], v), k
 
 
 def test_train_state_round_trip_with_ema(tmp_path):

@@ -43,7 +43,10 @@ def test_scan_covers_the_port():
             "pretrain.py", "sun.py", "sam.py", "classifier.py", "token_label.py",
             # checkpoints, the eval CLIs' loading, the datasets
             "reference.py", "from_flax.py", "run.py", "metric.py", "datasets.py",
-            "transforms.py"} <= names
+            "transforms.py",
+            # the rest of the encoder zoo
+            "nest.py", "swin.py", "levit.py", "lvvit.py", "deit.py", "resnet.py",
+            "resnet12.py", "convnet4.py", "fold.py"} <= names
     assert len([p for p in _port_files() if p.name == "token_label.py"]) == 2  # ops and heads
 
 

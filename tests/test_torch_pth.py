@@ -167,10 +167,15 @@ def test_bad_files_raise_as_in_jax(setup, case):
 def test_unknown_encoder_name_raises_by_name():
     with pytest.raises(KeyError, match="no torch key rule.*nest_micro_80"):
         j_encoder_key_fn_for("not_a_model_nest_micro_80")
-    with pytest.raises(KeyError, match="no torch key rule.*'nest_micro_80'.*item e"):
-        encoder_key_fn_for("nest_micro_80")
+    with pytest.raises(KeyError, match="no torch key rule.*'not_a_model_nest_micro_80'"):
+        encoder_key_fn_for("not_a_model_nest_micro_80")
     with pytest.raises(KeyError, match="no torch key rule"):
-        load_encoder_from_checkpoint("x.pth", _port_head().encoder, "resnet12")
+        load_encoder_from_checkpoint("x.pth", _port_head().encoder, "not_a_model")
+    # the rest of the zoo resolves to its rule: the port's names are the reference's
+    for name in ("nest_micro_80", "resnet12"):
+        j_encoder_key_fn_for(name)
+        assert encoder_key_fn_for(name)("layer1.conv1.weight", prefix="encoder.") == \
+            "encoder.layer1.conv1.weight"
 
 
 def test_load_model_rebuilds_port_checkpoints(tmp_path):
