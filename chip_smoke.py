@@ -98,8 +98,35 @@ Phases, in order; any failure exits non-zero:
      shapes, fp32 ms per batch; a reference-format ``.pth`` round trip per
      family. No zoo path launches either kernel, as no zoo encoder reaches
      a Pallas kernel in the JAX package;
- 21. print the ``training``, ``eval_clis`` and kernels' JSON lines, then the
-     result line.
+ 21. (after phase 16) ``solver: exact``: the ``eval.run_emd`` CLI from a
+     DeepEMD checkpoint this phase writes, the geometry of
+     ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 200
+     1-shot episodes, bf16 encoder, 8 a batch: the host-solver warning, 2
+     MHSA launches a batch and no Sinkhorn launch; the same episodes with
+     ``sinkhorn_pallas`` in process; accuracies, episodes/s and the host
+     solver's seconds. Then, fp32 with TF32 off, the exact flows of one
+     batch's 3,000 problems meet both marginals to 1e-6 and cost no more
+     than the Sinkhorn kernel's flows plus 1e-6; the kernel attention path
+     against plain attention under exact over 64 episodes (the accuracy
+     rule); one ``meta_tune_emd`` step with exact, fp32, ``bs`` 2: finite
+     loss, every parameter moved, BN statistics untouched;
+ 22. the 7 research heads (``token-label-ep``, ``-ep-rw``, ``-ep-cr``,
+     ``-v2``, ``meta-token``, ``-v2``, ``-v3``) at full width over the
+     synthetic 20 x 600 split, 5-way 1- and 5-shot, 15 queries, 4 episodes
+     a forward, bf16 and fp32: JAX's output shapes, finite, ms per forward,
+     2 MHSA launches per encoder call (meta-token encodes twice); then the
+     fp32 kernel attention path against plain attention on 4 batches per
+     (head, shot), the main logits' accuracy (``compute_acc_kshots`` for
+     meta-token, top-1 of ``y`` per image for ``-v2``) under the accuracy
+     rule;
+ 23. ``eval.visualize`` with ``--n 16`` from the phase-14 ``.pth`` in both
+     modes (2 MHSA launches a run, fp32), and ``--real-attn`` over the NesT
+     and Swin checkpoints of phase 17 (run right after phase 18): 16 JPGs,
+     maps in [0, 1], the card's maps within 1e-3 of the CPU port's from the
+     same weights and images; one pretrain CLI epoch with
+     ``visualize_datasets: true`` writes JAX's four PNG names;
+ 24. print the ``training``, ``eval_clis``, ``slice8`` and kernels' JSON
+     lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
@@ -211,6 +238,16 @@ ZOO_PTH = ("nest_micro_v2_rel_80", "swin_micro_v2_resembed_ada_80", "levit_micro
 # subsample's BN-normed q and kv remove: its output bias has a true gradient
 # of 0, so an optimizer step may leave it where it was
 ZOO_STATIC = {"levit_micro_80": ("encoder.blocks.2.proj.1.bn.bias",)}
+# slice 8: solver exact, the research heads, the visualization paths
+EXACT_EPISODES = 200        # the run_emd CLI with solver exact, bf16, 8 episodes a batch
+EXACT_CHECK_EPISODES = 64   # fp32 kernel vs plain attention under solver exact
+EXACT_PROBLEMS = 2000       # exact against Sinkhorn flows: at least this many problems
+HEAD_NAMES = ("token-label-ep", "token-label-ep-rw", "token-label-ep-cr", "token-label-v2",
+              "meta-token", "meta-token-v2", "meta-token-v3")
+HEAD_E = 4                  # episodes a forward (ep-cr's attention: 1.6 GB in fp32)
+HEAD_BATCHES = 4            # forwards per (head, shot) in the fp32 kernel-vs-plain check
+VIS_N = 16
+VIS_DATA = {"n_classes": 4, "n_per_class": 8, "image_size": 80, "seed": 9}
 
 
 def _fail(msg: str) -> None:
@@ -1935,6 +1972,354 @@ def _zoo_forward(dev, tag, tmp):
     return entry, counts
 
 
+def _exact_emd(dev, ds, images_dev, tag, tmp):
+    """Phase 21: ``solver: exact``. The run_emd CLI from a checkpoint this
+    phase writes, then the same episodes with sinkhorn_pallas in process;
+    exact against Sinkhorn flows on the batch's problems; the kernel
+    attention path against plain attention under exact; one meta_tune_emd
+    step with exact. Returns (entry, launch counts per path)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.checkpoint.io import save_variables
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.sampler import EpisodeSampler
+    from fewshot_vit_tpu_torch.eval import run_emd
+    from fewshot_vit_tpu_torch.eval.emd_eval import evaluate_emd, sample_emd_episode_indices
+    from fewshot_vit_tpu_torch.heads import deepemd
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train import meta_tune_emd as tt
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    def head_for(dtype, solver, fused=True, seed=2):
+        return models.make("deepemd", encoder=ENCODER, encoder_args={"use_pallas_attn": fused},
+                           solver=solver, dtype=dtype, device=dev, seed=seed)
+
+    ckpt = os.path.join(tmp, "sund_exact")
+    save_variables(ckpt, head_for(torch.float32, "exact").state_dict(),
+                   {"model": "deepemd", "encoder": ENCODER})
+    data = {"n_classes": 20, "n_per_class": 600, "image_size": 80, "seed": 0}
+    cfg = _write_cfg(tmp, "run_emd_exact", {
+        "val_dataset": "synthetic", "val_dataset_args": data, "deepemd": "grid",
+        "patch_list": [2, 3], "patch_ratio": 2.0, "temperature": 12.5, "solver": "exact",
+        "model_args": {"encoder": ENCODER, "encoder_args": {"use_pallas_attn": True}},
+        "load": ckpt})
+    n_batches = math.ceil(EXACT_EPISODES / CLI_EP_PER_BATCH)
+    eval_wall = []
+    orig_eval = run_emd.evaluate_emd
+
+    def timed_eval(*a, **k):
+        t = time.perf_counter()
+        out = orig_eval(*a, **k)
+        torch.cuda.synchronize()
+        eval_wall.append(time.perf_counter() - t)
+        return out
+
+    run_emd.evaluate_emd = timed_eval
+    host0 = deepemd.exact_flows.host_seconds
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    try:
+        accs_x, text = _cli(run_emd, ["--config", cfg, "--episodes", str(EXACT_EPISODES),
+                                      "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16",
+                                      "--device", str(dev)])
+    finally:
+        run_emd.evaluate_emd = orig_eval
+    cli_wall = time.perf_counter() - t0
+    host_s = deepemd.exact_flows.host_seconds - host0
+    counts = {"run_emd_cli_exact": _expect_counts("run_emd CLI solver exact", "tensor_core",
+                                                  _mhsa_per_forward() * n_batches, 0)}
+    if (run_emd.EXACT_ON_CARD in text) != (dev.type == "cuda") or "weights are random" in text:
+        _fail("run_emd CLI solver exact: the host-solver warning is missing on the card (or "
+              "printed off it), or the weights are random")
+    if accs_x.shape != (EXACT_EPISODES,) or not ((accs_x >= 0) & (accs_x <= 1)).all():
+        _fail(f"run_emd CLI solver exact: episode accuracies malformed: shape {accs_x.shape}")
+
+    sk_head = head_for(torch.bfloat16, "sinkhorn_pallas")
+    sk_head.load_state_dict(torch.load(os.path.join(ckpt, "arrays.pt"), map_location=dev))
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    _, _, accs_s = evaluate_emd(sk_head, ds, n_episodes=EXACT_EPISODES,
+                                ep_per_batch=CLI_EP_PER_BATCH, images_dev=images_dev, device=dev)
+    torch.cuda.synchronize()
+    sk_wall = time.perf_counter() - t0
+    counts["emd_sinkhorn_beside_exact"] = _expect_counts(
+        "sinkhorn_pallas beside exact", "tensor_core", _mhsa_per_forward() * n_batches,
+        n_batches)
+    del sk_head
+    eps_x, eps_s = EXACT_EPISODES / eval_wall[0], EXACT_EPISODES / sk_wall
+    print(f"solver exact {tag}: run_emd CLI {EXACT_EPISODES} episodes bf16 acc "
+          f"{accs_x.mean():.4f}, {eps_x:.2f} episodes/s ({eval_wall[0]:.2f} s eval, "
+          f"{cli_wall:.2f} s CLI), {host_s:.2f} s in the host solver; sinkhorn_pallas on the "
+          f"same episodes acc {accs_s.mean():.4f}, {eps_s:.2f} episodes/s; launches {counts}")
+
+    # fp32, TF32 off: exact flows against the Sinkhorn kernel's on the batch's
+    # problems, then the kernel attention path against plain attention
+    problems = []
+    orig_flows = deepemd.exact_flows
+
+    def recording(cost, w1, w2):
+        if not problems:
+            problems.append((cost.detach().clone(), w1.detach().clone(), w2.detach().clone()))
+        return orig_flows(cost, w1, w2)
+
+    idx = sample_emd_episode_indices(ds, EXACT_CHECK_EPISODES, WAY, SHOT + QUERY, 7)
+    accs = {}
+    # exact_flows adds to the attribute of whatever the module's name holds
+    recording.host_seconds = orig_flows.host_seconds
+    deepemd.exact_flows = recording
+    try:
+        for fused in (True, False):
+            _, _, accs[fused] = evaluate_emd(head_for(torch.float32, "exact", fused), ds,
+                                             indices=idx, ep_per_batch=CLI_EP_PER_BATCH,
+                                             images_dev=images_dev, device=dev)
+    finally:
+        deepemd.exact_flows = orig_flows
+        orig_flows.host_seconds = recording.host_seconds
+    differ = float((accs[True] != accs[False]).mean())
+    mean_d = float(abs(accs[True] - accs[False]).mean())
+    cost, w1, w2 = problems[0]
+    n1, n2 = cost.shape[-2:]
+    cost, w1, w2 = cost.reshape(-1, n1, n2), w1.reshape(-1, n1), w2.reshape(-1, n2)
+    flow = orig_flows(cost, w1, w2).double()
+    sk = sinkhorn_pallas(cost, w1, w2).double()
+    row = (flow.sum(-1) - w1.double()).abs().max().item()
+    col = (flow.sum(-2) - w2.double() * (w1.double().sum(-1, keepdim=True)
+                                        / w2.double().sum(-1, keepdim=True))).abs().max().item()
+    excess = ((flow - sk) * cost.double()).sum((-2, -1)).max().item()
+    print(f"solver exact {tag}: {cost.shape[0]} problems of one fp32 batch: marginals met to "
+          f"{row:.2e} (rows) / {col:.2e} (columns), objective minus Sinkhorn's at most "
+          f"{excess:.2e}; fp32 (TF32 off) kernel attention vs plain attention under exact: "
+          f"episodes differing={differ:.4f}, mean|dacc|={mean_d:.5f}, acc "
+          f"{accs[True].mean():.4f} vs {accs[False].mean():.4f}")
+    if cost.shape[0] < EXACT_PROBLEMS or row > 1e-6 or col > 1e-6 or excess > 1e-6:
+        _fail("solver exact: a flow misses a marginal, or costs more than Sinkhorn's")
+    if differ > 0.01 or mean_d > 0.005:
+        _fail("solver exact: fp32 kernel attention path and plain path disagree")
+
+    # one meta_tune_emd step, fp32, bs 2
+    c = dict(SUND_TRAIN, solver="exact")
+    head = head_for(torch.float32, "exact", seed=4)
+    labels = torch.arange(WAY, device=dev).repeat(QUERY)
+    fn = tt.make_emd_episode_fn(head, WAY, SHOT, QUERY,
+                                tt.make_patch_fn("grid", c["patch_list"], c["patch_ratio"], 80,
+                                                 train=True),
+                                ds.mean, ds.std, sfc=False, train=True)
+    state = TrainState(head, tt.build_sund_optimizer(Config(c), head.parameters()))
+    before = _state_copy(head)
+    sampler = EpisodeSampler(ds.labels, 1, WAY, SHOT + QUERY, c["bs"])
+    step_idx = torch.from_numpy(tt.interleaved(sampler.batch(rng_mod.np_rng(0, 9)), c["bs"],
+                                               WAY, SHOT + QUERY)[None].astype(np.int64)).to(dev)
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    state.optimizer.set_epoch(0)
+    t0 = time.perf_counter()
+    m = tt.make_emd_epoch_fn(fn, labels, c["bs"])(state, images_dev, step_idx, (0, 1))
+    loss = m["loss"].cpu().numpy()
+    step_s = time.perf_counter() - t0
+    counts["meta_tune_emd_exact_step"] = _expect_counts("meta_tune_emd exact step", "general", 0)
+    print(f"solver exact {tag}: one meta_tune_emd step, fp32, bs {c['bs']}: loss "
+          f"{loss.tolist()} in {step_s:.2f} s")
+    if not np.isfinite(loss).all():
+        _fail(f"meta_tune_emd solver exact: the loss is not finite: {loss}")
+    _check_moved("meta_tune_emd solver exact", head, before, bn_frozen=True)
+    return {"episodes": EXACT_EPISODES, "acc_exact": float(accs_x.mean()),
+            "acc_sinkhorn_pallas": float(accs_s.mean()), "episodes_per_s_exact": eps_x,
+            "episodes_per_s_sinkhorn_pallas": eps_s, "host_solver_s": host_s,
+            "cli_wall_s": cli_wall, "problems_checked": int(cost.shape[0]),
+            "marginal_err": max(row, col), "objective_minus_sinkhorn_max": excess,
+            "kernel_vs_plain_differ": differ, "kernel_vs_plain_mean_dacc": mean_d,
+            "train_step_loss": loss.tolist(), "train_step_s": step_s}, counts
+
+
+def _research_heads(dev, ds, images_dev, tag):
+    """Phase 22: the 7 research heads at full width, 5-way 1- and 5-shot,
+    15 queries, ``HEAD_E`` episodes a forward, fp32 and bf16: JAX's shapes,
+    finite outputs, ms per forward, MHSA launches per encoder call; then the
+    fp32 kernel attention path against plain attention. Returns (entry,
+    launch counts per path)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch import heads as _heads  # noqa: F401
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.transforms import normalize
+    from fewshot_vit_tpu_torch.eval.episodic import sample_episode_indices
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.ops.metric import compute_acc_kshots
+
+    q_all = WAY * QUERY
+    label = torch.arange(WAY, device=dev).repeat_interleave(QUERY)
+    indices = {shot: sample_episode_indices(ds, HEAD_E * HEAD_BATCHES, WAY, shot + QUERY,
+                                            HEAD_E, seed=5 + shot) for shot in (1, 5)}
+
+    def make(name, dtype, fused):
+        kw = {"classifier_args": {"n_classes": ds.n_classes}} if name == "token-label-v2" else {}
+        return models.make(name, encoder=ENCODER, encoder_args={"use_pallas_attn": fused},
+                           dtype=dtype, device=dev, seed=3, **kw)
+
+    def batch(shot, b):
+        idx = torch.from_numpy(indices[shot][b].astype(np.int64)).to(dev)
+        x = normalize(images_dev[idx], ds.mean, ds.std).reshape(HEAD_E, WAY, shot + QUERY,
+                                                                80, 80, 3)
+        return x[:, :, :shot], x[:, :, shot:]
+
+    def call(head, name, xs, xq):
+        if name == "token-label-v2":
+            return head(torch.cat([xs.reshape(-1, 80, 80, 3), xq.reshape(-1, 80, 80, 3)]))
+        if name.startswith("meta-token"):
+            return head(xs, xq)
+        return head(xs, xq.reshape(HEAD_E, q_all, 80, 80, 3))
+
+    def shapes(name, shot, c):
+        if name == "token-label-v2":
+            b = HEAD_E * WAY * (shot + QUERY)
+            return [(b, 5, 5, 128), (b, ds.n_classes), (b, c), (b, 5, 5, c)]
+        if name.startswith("meta-token"):
+            return [(HEAD_E, q_all, WAY * shot), (HEAD_E, q_all, WAY)]
+        return [(HEAD_E, q_all, WAY)] * {"token-label-ep-rw": 4}.get(name, 2)
+
+    def calls(name):
+        return 2 if name.startswith("meta-token") else 1
+
+    def main_acc(name, out, shot):
+        """Per-episode accuracy of the main logits (per image top-1 for v2)."""
+        if name == "token-label-v2":
+            return out[1].float().argmax(-1)
+        if name.startswith("meta-token"):
+            return torch.stack([compute_acc_kshots(out[0][e].float(), label, shot)
+                                for e in range(HEAD_E)])
+        return (out[0].float().argmax(-1) == label).float().mean(-1)
+
+    entry, counts = {}, {}
+    with torch.inference_mode():
+        for dtype, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "general")):
+            dname = str(dtype).split(".")[1]
+            heads = {name: make(name, dtype, True) for name in HEAD_NAMES}
+            _zero_counts(fused_mhsa, sinkhorn_pallas)
+            n_calls = 0
+            for name, head in heads.items():
+                for shot in (1, 5):
+                    out = call(head, name, *batch(shot, 0))
+                    n_calls += calls(name)
+                    got = [tuple(o.shape) for o in out]
+                    want = shapes(name, shot, head.encoder.out_dim)
+                    if got != want:
+                        _fail(f"{name} {dname} {shot}-shot: output shapes {got}, expected {want}")
+                    if not all(torch.isfinite(o).all() for o in out):
+                        _fail(f"{name} {dname} {shot}-shot: an output is not finite")
+            torch.cuda.synchronize()
+            counts[f"research_heads_{dname}"] = _expect_counts(
+                f"research heads {dname}", route, _mhsa_per_forward() * n_calls)
+            for name, head in heads.items():
+                for shot in (1, 5):
+                    xs, xq = batch(shot, 0)
+                    entry.setdefault(name, {})[f"ms_{dname}_{shot}shot"] = _time_ms(
+                        lambda: call(head, name, xs, xq), reps=10, warm=2)
+            del heads
+            torch.cuda.empty_cache()
+        print(f"research heads {tag}: {len(HEAD_NAMES)} heads x 1/5-shot x bf16/fp32, "
+              f"{HEAD_E} episodes of {WAY}-way {QUERY}-query a forward, JAX's shapes, finite; "
+              f"launches {counts}; ms per forward {json.dumps(entry)}")
+
+        differ, total, mean_d, worst = 0, 0, [], {}
+        for name in HEAD_NAMES:
+            k_head, p_head = make(name, torch.float32, True), make(name, torch.float32, False)
+            for shot in (1, 5):
+                for b in range(HEAD_BATCHES):
+                    xs, xq = batch(shot, b)
+                    a = main_acc(name, call(k_head, name, xs, xq), shot)
+                    c = main_acc(name, call(p_head, name, xs, xq), shot)
+                    d = (a != c).float()
+                    differ += int(d.sum())
+                    total += d.numel()
+                    if name != "token-label-v2":
+                        mean_d.append(float((a - c).abs().mean()))
+                    worst[name] = worst.get(name, 0) + int(d.sum())
+            del k_head, p_head
+            torch.cuda.empty_cache()
+    share, mean_dacc = differ / total, float(np.mean(mean_d))
+    print(f"research heads {tag}: fp32 (TF32 off) kernel attention vs plain attention, "
+          f"{total} episodes (images for token-label-v2): differing={share:.4f}, "
+          f"mean|dacc|={mean_dacc:.5f}; differing by head {worst}")
+    if share > 0.01 or mean_dacc > 0.005:
+        _fail("research heads: fp32 kernel attention path and plain path disagree")
+    entry["kernel_vs_plain"] = {"differ": share, "mean_dacc": mean_dacc, "n": total}
+    return entry, counts
+
+
+def _visualize(dev, tmp, tag, label, cfg_extra, real_modes, n_mhsa):
+    """``eval.visualize`` on the card and on the CPU from the same weights:
+    ``VIS_N`` JPGs, maps in [0, 1], the card's fp32 maps within 1e-3 of the
+    CPU port's, ``n_mhsa`` fused-MHSA launches a run. Returns (entry, counts)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.eval import visualize
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+
+    cfg = _write_cfg(tmp, f"vis_{label}", {"dataset": "synthetic", "dataset_args": VIS_DATA,
+                                           **cfg_extra})
+    entry, counts = {}, {}
+    for real in real_modes:
+        mode = "real_attn" if real else "synthesized"
+        out = os.path.join(tmp, f"vis_{label}_{mode}")
+        argv = ["--config", cfg, "--n", str(VIS_N)] + (["--real-attn"] if real else [])
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        maps, _ = _cli(visualize, argv + ["--out", out, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[f"visualize_{label}_{mode}"] = _expect_counts(f"visualize {label} {mode}",
+                                                             "general", n_mhsa)
+        cpu_maps, _ = _cli(visualize, argv + ["--out", out + "_cpu", "--device", "cpu"])
+        jpgs = sorted(f for f in os.listdir(out) if f.endswith(".jpg"))
+        err = float(np.abs(maps - cpu_maps).max())
+        print(f"visualize {tag} {label} {mode}: {len(jpgs)} JPGs in {wall:.2f} s, maps "
+              f"{maps.shape} in [{maps.min():.3f}, {maps.max():.3f}], card vs CPU max|d| "
+              f"{err:.2e}, launches {counts[f'visualize_{label}_{mode}']}")
+        if len(jpgs) != VIS_N or maps.min() < 0.0 or maps.max() > 1.0 or err > 1e-3:
+            _fail(f"visualize {label} {mode}: {len(jpgs)} JPGs, maps in [{maps.min()}, "
+                  f"{maps.max()}], card vs CPU {err}")
+        entry[mode] = {"wall_s": wall, "card_vs_cpu_max_abs": err, "shape": list(maps.shape)}
+    return entry, counts
+
+
+def _visualize_pretrain_cli(tmp, tag):
+    """One pretrain CLI epoch with ``visualize_datasets: true``: JAX's PNG names."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train import pretrain
+    from fewshot_vit_tpu_torch.train.runner import parse_args
+
+    cfg = os.path.join(tmp, "pretrain_vis.yaml")
+    with open(cfg, "w") as f:
+        f.write(_CLI_PRETRAIN.replace("max_epoch: 2", "max_epoch: 1")
+                + "visualize_datasets: true\n")
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    pretrain.main(*parse_args("chip_smoke pretrain", ["--config", cfg, "--save-root", tmp,
+                                                      "--name", "pretrain_vis"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pngs = sorted(f for f in os.listdir(os.path.join(tmp, "pretrain_vis")) if f.endswith(".png"))
+    want = ["visualize_fs_dataset.png", "visualize_train_aug.png",
+            "visualize_train_dataset.png", "visualize_val_dataset.png"]
+    print(f"visualize {tag}: pretrain CLI, 1 epoch with visualize_datasets in {wall:.1f} s: "
+          f"{pngs}; fused_mhsa launches {dict(fused_mhsa.route_launches)}")
+    if pngs != want:
+        _fail(f"pretrain CLI visualize_datasets: wrote {pngs}, expected {want}")
+    return {"wall_s": wall, "pngs": pngs}, {
+        "pretrain_cli_visualize_datasets": {"fused_mhsa": dict(fused_mhsa.route_launches),
+                                            "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", default=None, help="write a profiler table here")
@@ -2172,6 +2557,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         zoo_eval, counts = _zoo_eval(dev, ds, images_dev, zoo_ckpts, tag, tmp)
         zoo_launches.update(counts)
+        # phase 23's zoo half: --real-attn over the NesT and Swin checkpoints
+        slice8, slice8_launches = {"visualize": {}}, {}
+        t8 = time.perf_counter()
+        for name in ("nest_micro_v2_gpsa", "swin_micro_resembed_80"):
+            slice8["visualize"][name], counts = _visualize(
+                dev, tmp, tag, name, {"encoder": name, "load_encoder": zoo_ckpts[name]},
+                (True,), 0)
+            slice8_launches.update(counts)
+        slice8_s = time.perf_counter() - t8
         # phases 19-20: the ResNet-18 meta-tune from a .pth, every other encoder
         meta, counts = _zoo_meta_tune(dev, ds, images_dev, tag, tmp)
         zoo.update(meta)
@@ -2191,6 +2585,20 @@ def main() -> int:
         eval_launches.update(counts)
         clis["loaders"], counts = _loaders(dev, tmp, pth, tag)
         eval_launches.update(counts)
+        # phases 21-23: solver exact, the research heads, the visualization paths
+        t8 = time.perf_counter()
+        slice8["exact"], counts = _exact_emd(dev, ds, images_dev, tag, tmp)
+        slice8_launches.update(counts)
+        slice8["research_heads"], counts = _research_heads(dev, ds, images_dev, tag)
+        slice8_launches.update(counts)
+        slice8["visualize"][ENCODER], counts = _visualize(
+            dev, tmp, tag, ENCODER, {"encoder": ENCODER, "load": pth, "model_args": {
+                "encoder_args": {"use_pallas_attn": True}}}, (False, True), _mhsa_per_forward())
+        slice8_launches.update(counts)
+        slice8["visualize"]["pretrain_cli"], counts = _visualize_pretrain_cli(tmp, tag)
+        slice8_launches.update(counts)
+        slice8["phases_s"] = slice8_s + time.perf_counter() - t8
+        print(f"slice 8 phases (21-23) {tag}: {slice8['phases_s']:.1f} s")
     for entry in kernels:
         entry["train_launches"] = {
             path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
@@ -2201,10 +2609,13 @@ def main() -> int:
         # the encoder zoo reaches no kernel, in either package
         entry["zoo_launches"] = {path: sum(c[entry["name"]].values())
                                  for path, c in zoo_launches.items()}
+        entry["slice8_launches"] = {path: sum(c[entry["name"]].values())
+                                    for path, c in slice8_launches.items()}
     clis["zoo"] = zoo_eval
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"eval_clis": clis, "card": card}))
+    print(json.dumps({"slice8": slice8, "card": card}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,11 +31,17 @@ Ported so far:
   * slice 7, the rest of the encoder zoo (NesT, Swin, LeViT, LV-ViT, DeiT,
     ResNet-18/50, ResNet-12 and its DropBlock variant, ConvNet-4), each
     family's flax and reference ``.pth`` key rule, and the LeViT and
-    ResNet-12 BN folds; the zoo runs no custom kernel, as in JAX.
+    ResNet-12 BN folds; the zoo runs no custom kernel, as in JAX;
+  * slice 8: ``solver: exact`` (the C++ transportation simplex, host side,
+    ``native/``), the research heads (``token-label-ep``, ``-ep-rw``,
+    ``-ep-cr``, ``-v2``, ``meta-token``, ``-v2``, ``-v3``) with their metric
+    functions and the ``utils`` names, attention capture in Visformer, NesT
+    and Swin, ``eval.visualize`` (``--real-attn``) and the trainers'
+    ``visualize_datasets`` grids.
 
 Entry points (``models.make``, ``eval.episodic.evaluate``/``encode_dataset``,
 ``eval.emd_eval.evaluate_emd``, and ``python -m fewshot_vit_tpu_torch.X`` for
-X in ``eval.run``, ``eval.run_emd``, ``train.pretrain``, ``train.sun``,
+X in ``eval.run``, ``eval.run_emd``, ``eval.visualize``, ``train.pretrain``, ``train.sun``,
 ``train.meta_tune``, ``train.meta_tune_emd``) run on ``device="cuda"`` unless told
 ``device="cpu"``; without a card they raise.
 """

@@ -20,8 +20,13 @@ reference ``.pth`` files. Layouts:
 The target is the module (or state dict) passed as ``like``; without one the
 layout falls back to Visformer's (Dense -> 1x1 conv, except a head's ``fc``
 and ``linear``). A head's ``encoder`` subtree maps under ``encoder.`` through
-its family's rule; the MetaBaseline ``temp``, the DeepEMD pretrain ``fc`` and
-the classifiers (``classifier.linear`` ...) map at the top level.
+its family's rule; the head's own entries map at the top level under the
+same names, the port's modules being named as the flax subtrees: the
+MetaBaseline and meta-token ``temp`` (0-d), the DeepEMD pretrain ``fc``, the
+classifiers (``classifier.linear`` ...), ``intra_task_learner.fc1`` /
+``intra_class_learner.fc2`` (``token-label-ep-rw``), ``projection_0/2/4``
+and ``classifier_local_0/2/4`` (``token-label-v2``) and ``transformer.q``
+/ ``.k`` / ``.v`` (``meta-token-v3``).
 
 The mapping is a relabelling with transpositions, so it is linear: applied to
 a tree of JAX GRADIENTS (``{"params": grads}``) it gives the port's gradients

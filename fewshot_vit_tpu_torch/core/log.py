@@ -1,7 +1,7 @@
 """Run logging, metric averaging, timing (counterpart:
 ``fewshot_vit_tpu/core/log.py``): a text log (``log.txt``) and a JSON-lines
-metric stream (``metrics.jsonl``) per run directory. The sample-grid PNGs
-(``visualize_dataset`` / ``image_grid``) are not ported yet."""
+metric stream (``metrics.jsonl``) per run directory, and sample-grid PNGs
+(``visualize_dataset`` / ``image_grid``)."""
 
 from __future__ import annotations
 
@@ -70,6 +70,41 @@ class RunLogger:
         if self.save_dir is not None:
             with open(os.path.join(self.save_dir, "log.txt"), "a") as f:
                 print(msg, file=f)
+
+    def visualize_dataset(self, dataset, name: str, n_samples: int = 16,
+                          seed: int = 0) -> Optional[str]:
+        """Save a grid PNG of ``n_samples`` random images of ``dataset``
+        (reference ``utils.visualize_dataset``: tensorboard images become an
+        on-disk grid), ``visualize_<name>.png``, the JAX package's draw of
+        ``np.random.default_rng(seed)``. Returns the written path."""
+        if self.save_dir is None:
+            return None
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        idx = rng.choice(len(dataset), min(n_samples, len(dataset)), replace=False)
+        return self.image_grid(f"visualize_{name}", np.asarray(dataset.images[np.sort(idx)]))
+
+    def image_grid(self, name: str, imgs_u8) -> Optional[str]:
+        """Write a square grid PNG of (N, H, W, 3) uint8 images into the run
+        directory as ``<name>.png``, row-major, ceil(sqrt(N)) columns.
+        Returns the written path."""
+        if self.save_dir is None:
+            return None
+        import numpy as np
+        from PIL import Image
+
+        imgs = np.asarray(imgs_u8, np.uint8)
+        cols = int(np.ceil(np.sqrt(len(imgs))))
+        rows = int(np.ceil(len(imgs) / cols))
+        h, w = imgs.shape[1:3]
+        grid = np.zeros((rows * h, cols * w, 3), np.uint8)
+        for i, im in enumerate(imgs):
+            r, c = divmod(i, cols)
+            grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = im
+        path = os.path.join(self.save_dir, f"{name}.png")
+        Image.fromarray(grid).save(path)
+        return path
 
     def metrics(self, step: int, **values: Any) -> None:
         if self.save_dir is None:

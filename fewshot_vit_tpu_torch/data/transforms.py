@@ -2,7 +2,8 @@
 
 Host side, once at load: the eval geometry Resize(88,88) -> CenterCrop(80)
 or the train-phase Resize(short side), both PIL bicubic. Device side, per
-batch: uint8 -> normalized float.
+batch: uint8 -> normalized float, and back (``denormalize``) for images a
+person looks at.
 """
 
 from __future__ import annotations
@@ -25,6 +26,13 @@ def normalize(x: torch.Tensor, mean=MEAN, std=STD,
     std_t = torch.as_tensor(np.asarray(std), dtype=dtype, device=x.device)
     x = x.to(dtype) / torch.tensor(255.0, dtype=dtype, device=x.device)
     return (x - mean_t) / std_t
+
+
+def denormalize(x: torch.Tensor, mean=MEAN, std=STD) -> torch.Tensor:
+    """Normalized float -> [0, 1] float, in ``x``'s dtype."""
+    mean_t = torch.as_tensor(np.asarray(mean), dtype=x.dtype, device=x.device)
+    std_t = torch.as_tensor(np.asarray(std), dtype=x.dtype, device=x.device)
+    return x * std_t + mean_t
 
 
 def resize_center_crop(img_np: np.ndarray, resize: int = 88, crop: int = 80) -> np.ndarray:

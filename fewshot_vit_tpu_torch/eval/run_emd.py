@@ -12,7 +12,9 @@ The config is read as the JAX CLI reads it: ``test_dataset`` (else
 ``val_dataset``) with ``*_args``, ``model_args.encoder(_args)``, ``deepemd``,
 ``patch_list``, ``patch_ratio``, ``image_size``, ``solver``, ``solver_reg``,
 ``solver_iters``, ``temperature``, ``feature_pyramid`` and ``sfc_*``.
-``solver: sinkhorn_pallas`` runs the CUDA Sinkhorn kernel. The weights
+``solver: sinkhorn_pallas`` runs the CUDA Sinkhorn kernel; ``solver: exact``
+the C++ transportation simplex on the host (with a warning on the card:
+every EMD batch goes to the host and back). The weights
 come from ``load:`` (a whole DeepEMD head: a port checkpoint directory or a
 reference ``.pth``, e.g. SUN-D's ``{"params": ...}`` files) or
 ``load_encoder:`` (the encoder of any head's checkpoint); without either
@@ -36,6 +38,11 @@ from ..train.runner import resolve_checkpoint
 from .emd_eval import evaluate_emd
 from .run import RANDOM_WEIGHTS
 
+EXACT_ON_CARD = ("WARNING: solver 'exact' runs the C++ simplex on the HOST: every EMD batch "
+                 "goes from the card to the host in float64 and its flows come back, so the "
+                 "card waits on the host solver; the on-card solvers are 'sinkhorn_pallas' "
+                 "and 'sinkhorn_detached'.")
+
 
 def main(argv=None) -> np.ndarray:
     """Run the CLI; returns the per-episode accuracies."""
@@ -52,6 +59,8 @@ def main(argv=None) -> np.ndarray:
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = load_config(args.config)
+    if cfg.get("solver") == "exact" and dev.type == "cuda":
+        print(EXACT_ON_CARD)
 
     key = "test_dataset" if cfg.get("test_dataset") else "val_dataset"
     ds = datasets.make(cfg.get(key, "mini-imagenet"), **dict(cfg.get(f"{key}_args", {}) or {}))

@@ -6,8 +6,9 @@
     between every (query node, prototype node) pair;
   * EMD flows over cost = 1 - similarity, logits = sum(sim * flow) *
     temperature / num_node. The flows come from ``ops.emd.sinkhorn`` (torch
-    ops) or, with ``solver: sinkhorn_pallas``, from the CUDA kernel
-    (``kernels/sinkhorn.py``);
+    ops), with ``solver: sinkhorn_pallas`` from the CUDA kernel
+    (``kernels/sinkhorn.py``), or with ``solver: exact`` from the C++
+    transportation simplex on the host (``exact_flows``);
   * SFC: k-shot prototypes refined by SGD(momentum .9, dampening .9) steps
     against the support set at eval time;
   * nodes: per-patch pooled features for 5-D patch batches (grid), or the
@@ -19,6 +20,7 @@ Everything is batched over episodes: (E, way, N, C) prototypes against
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Any, Optional, Sequence
 
@@ -89,6 +91,33 @@ def similarity_map(proto: torch.Tensor, query: torch.Tensor,
     raise ValueError(metric)
 
 
+def exact_flows(cost: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Exact transportation-simplex flows from the C++ solver
+    (``native/emd_solver.cpp``), one problem per (query, prototype) pair:
+    the semantics of the reference's eval path (cv2.EMD with detached
+    flows). Every exact solver reaches the same optimal objective, hence the
+    same ``(sim * flow).sum()`` logits, even where the optimal flow itself is
+    not unique.
+
+    cost (..., N1, N2), w1 (..., N1), w2 (..., N2). The inputs are detached
+    and cast to fp32, go to the host in float64 through the simplex, and the
+    flows come back as fp32 on the cost's device: constants of the autograd
+    graph, as JAX's ``pure_callback`` makes them. The host seconds spent
+    here add up in ``exact_flows.host_seconds``."""
+    t0 = time.perf_counter()
+    from ..native.emd import emd_exact
+
+    n1, n2 = cost.shape[-2:]
+    host = lambda t, *shape: t.detach().float().cpu().numpy().astype(np.float64).reshape(shape)
+    flows, _ = emd_exact(host(cost, -1, n1, n2), host(w1, -1, n1), host(w2, -1, n2))
+    out = torch.from_numpy(flows.astype(np.float32).reshape(cost.shape)).to(cost.device)
+    exact_flows.host_seconds += time.perf_counter() - t0
+    return out
+
+
+exact_flows.host_seconds = 0.0
+
+
 def emd_logits(
     proto: torch.Tensor,
     query: torch.Tensor,
@@ -104,14 +133,11 @@ def emd_logits(
     logits (..., Q, way), always in fp32.
 
     ``solver_impl='pallas'`` (the JAX package's name) sends the flows
-    through the CUDA Sinkhorn kernel; ``'xla'`` runs ``ops.emd.sinkhorn``.
-    With ``differentiable=True`` the flows stay in the autograd graph, so the
-    torch-op Sinkhorn runs whatever the impl, as in JAX. Otherwise the flows
-    are constants: gradients reach the inputs only through ``sim``."""
-    if solver_impl == "exact":
-        raise NotImplementedError(
-            "solver 'exact' (the C++ transportation simplex) is not ported yet: "
-            "ROADMAP.md, item c of the order list")
+    through the CUDA Sinkhorn kernel; ``'exact'`` through the C++ simplex on
+    the host (``exact_flows``); ``'xla'`` runs ``ops.emd.sinkhorn``. With
+    ``differentiable=True`` the torch-op Sinkhorn runs unless the impl is
+    ``'exact'``, as in JAX. Otherwise the flows are constants: gradients
+    reach the inputs only through ``sim``."""
     proto = proto.float()
     query = query.float()
     w_query = weight_vector(query, proto)                 # (..., Q, way, N)
@@ -121,7 +147,9 @@ def emd_logits(
                          metric)                          # (..., Q, way, Nq, Np)
     w1 = normalize_weights(w_query)
     w2 = normalize_weights(w_proto)
-    if solver_impl == "pallas" and not differentiable:
+    if solver_impl == "exact":
+        flow = exact_flows(1.0 - sim, w1, w2)
+    elif solver_impl == "pallas" and not differentiable:
         from ..kernels.sinkhorn import sinkhorn_pallas
 
         cost = 1.0 - sim
@@ -250,7 +278,8 @@ class DeepEMD(nn.Module):
     In training mode the encoder's dropout and drop-path are live; the SUN-D
     trainer wraps ``encode_nodes`` in ``models.common.frozen_bn()``. With
     ``solver: sinkhorn_unrolled`` the flows stay in the autograd graph; with
-    ``sinkhorn_detached`` and ``sinkhorn_pallas`` they are constants."""
+    ``sinkhorn_detached``, ``sinkhorn_pallas`` and ``exact`` they are
+    constants."""
 
     # driven by its own loops (train/meta_tune_emd.py, eval/run_emd.py), not
     # the standard episodic meta-tune contract (train/meta_tune.py)

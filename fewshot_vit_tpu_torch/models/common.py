@@ -81,6 +81,42 @@ def injected_draws(masks: Iterable[torch.Tensor]) -> Iterator[None]:
         _injected.reset(token)
 
 
+# --- attention capture ---------------------------------------------------------
+# The JAX zoo's ``self.sow("intermediates", ...)``: inside ``capture_attention()``
+# the Visformer, NesT and Swin attention modules record their post-softmax
+# weights (Swin also its stitched, unshifted map) where JAX sows them. Outside
+# it, ``sow`` reads one context variable and records nothing.
+_captured: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
+    "fewshot_vit_captured_attention", default=None)
+
+
+@contextlib.contextmanager
+def capture_attention() -> Iterator[list]:
+    """Yields a list that fills, in call order (which is depth order), with
+    ``(module, key, tensor)`` for every sow of the forwards run inside:
+    ``key`` is ``"attn"`` (post-softmax weights) or ``"attn_map"`` (Swin's
+    image-plane map). Capture changes no dispatch: a block whose attention
+    runs through the fused kernel records nothing, as in JAX."""
+    found: list = []
+    token = _captured.set(found)
+    try:
+        yield found
+    finally:
+        _captured.reset(token)
+
+
+def capturing() -> bool:
+    """True inside ``capture_attention()``."""
+    return _captured.get() is not None
+
+
+def sow(module: nn.Module, key: str, value: torch.Tensor) -> None:
+    """Record ``value`` under ``key`` for ``module`` inside ``capture_attention()``."""
+    found = _captured.get()
+    if found is not None:
+        found.append((module, key, value.detach()))
+
+
 def _uniform(shape, like: torch.Tensor) -> torch.Tensor:
     return torch.rand(shape, generator=_generator.get(), device=like.device, dtype=torch.float32)
 

@@ -40,6 +40,7 @@ from .common import (
     Linear,
     init_weights,
     max_pool,
+    sow,
     trunc_normal_,
 )
 from .swin import Mlp, relative_position_index
@@ -92,7 +93,10 @@ class NestAttention(nn.Module):
         if self.window:
             bias = self.relative_position_bias_table[self.relative_position_index]
             attn = attn + bias.reshape(n, n, h).permute(2, 0, 1).to(attn.dtype)
-        attn = self.attn_drop(torch.softmax(attn, dim=-1))
+        attn = torch.softmax(attn, dim=-1)
+        if not self.window:  # JAX sows in its standard attention, not in the rel one
+            sow(self, "attn", attn)
+        attn = self.attn_drop(attn)
         # head-dim-major merge: channel = d * H + h (the reference's permute)
         out = torch.einsum("bthqk,btkhd->btqdh", attn, v).reshape(b, t, n, c)
         return self.proj_drop(self.proj(out))

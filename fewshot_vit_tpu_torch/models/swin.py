@@ -29,7 +29,18 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.registry import models
-from .common import Conv, DropPath, Dropout, LayerNorm, Linear, gelu, init_weights, trunc_normal_
+from .common import (
+    Conv,
+    DropPath,
+    Dropout,
+    LayerNorm,
+    Linear,
+    capturing,
+    gelu,
+    init_weights,
+    sow,
+    trunc_normal_,
+)
 from .visformer import ConvStem, drop_path_ladder
 
 LN_EPS = 1e-5
@@ -88,7 +99,11 @@ class WindowAttention(nn.Module):
         self.proj = Linear(dim, dim, True, dtype)
         self.attn_drop, self.proj_drop = Dropout(attn_drop), Dropout(proj_drop)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                grid: Optional[int] = None, shift: int = 0) -> torch.Tensor:
+        """``grid`` (the block's token-grid edge) and ``shift`` let a capture
+        stitch the windows' head- and query-averaged attention back onto the
+        image plane (``attn_map``, (B, grid, grid))."""
         b_, n, c = x.shape
         h = self.num_heads
         hd = c // h
@@ -100,7 +115,15 @@ class WindowAttention(nn.Module):
             nw = mask.shape[0]
             attn = attn.reshape(b_ // nw, nw, h, n, n) + mask.to(attn.dtype)[None, :, None]
             attn = attn.reshape(b_, h, n, n)
-        attn = self.attn_drop(torch.softmax(attn, dim=-1))
+        attn = torch.softmax(attn, dim=-1)
+        sow(self, "attn", attn)
+        if grid is not None and capturing():
+            ws = int(round(n ** 0.5))
+            amap = window_reverse(attn.mean(dim=(1, 2))[..., None], ws, grid, grid)
+            if shift > 0:
+                amap = torch.roll(amap, (shift, shift), dims=(1, 2))
+            sow(self, "attn_map", amap[..., 0])
+        attn = self.attn_drop(attn)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b_, n, c)
         return self.proj_drop(self.proj(out))
 
@@ -148,7 +171,7 @@ class SwinBlock(nn.Module):
         y = self.norm1(x).reshape(b, r, r, c)
         if s > 0:
             y = torch.roll(y, (-s, -s), dims=(1, 2))
-        y = window_reverse(self.attn(window_partition(y, ws), self.attn_mask), ws, r, r)
+        y = window_reverse(self.attn(window_partition(y, ws), self.attn_mask, r, s), ws, r, r)
         if s > 0:
             y = torch.roll(y, (s, s), dims=(1, 2))
         x = x + self.drop_path(y.reshape(b, l, c))

@@ -45,6 +45,7 @@ from .common import (
     kaiming_out_,
     leaky_relu,
     max_pool,
+    sow,
     trunc_normal_,
 )
 
@@ -124,8 +125,9 @@ class Attention(nn.Module):
                 and h * w >= 64):
             out = attention_core(q, k, v, self.scale, use_pallas=True)
         else:
-            attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale
-            attn = self.attn_dropout(torch.softmax(attn, dim=-1))
+            attn = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale, dim=-1)
+            sow(self, "attn", attn)  # only on this branch, as JAX sows
+            attn = self.attn_dropout(attn)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.proj_dropout(self.proj(out.reshape(b, h, w, heads * hd)))
 

@@ -53,6 +53,39 @@ def per_episode_acc(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     return correct * torch.tensor(1.0 / label.shape[-1], dtype=torch.float32)
 
 
+def compute_logits_kshot(feat: torch.Tensor, proto: torch.Tensor, temp=1.0) -> torch.Tensor:
+    """Per-shot cosine logits (reference ``compute_logits_kshot``):
+    feat (B, M, K, C), proto (B, N, K, C) -> (B, N, K), summed over M."""
+    return torch.einsum("bmkc,bnkc->bnk", l2_normalize(proto), l2_normalize(feat)) * temp
+
+
+def compute_logits_local_kshot(feat: torch.Tensor, proto: torch.Tensor, temp=1.0) -> torch.Tensor:
+    """Mean local cosine similarity over the last-but-one axis (reference
+    ``compute_logits_local_kshot``): (..., T, C) pairs -> (...)."""
+    cos = torch.sum(l2_normalize(feat) * l2_normalize(proto), dim=-1)
+    return cos.mean(dim=-1) * temp
+
+
+def compute_acc_kshots(logits: torch.Tensor, label: torch.Tensor, shot: int = 5) -> torch.Tensor:
+    """Max-over-shots accuracy (reference ``compute_acc_kshots``): logits
+    (B, way*shot) -> the class of each row's best shot, against ``label``."""
+    per_class = logits.reshape(logits.shape[0], -1, shot).amax(dim=-1)
+    correct = (torch.argmax(per_class, dim=1) == label).to(torch.float32).sum()
+    # times the fp32 reciprocal, as XLA lowers jnp.mean (see per_episode_acc)
+    return correct * torch.tensor(1.0 / label.shape[0], dtype=torch.float32)
+
+
+def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor,
+                    matching: torch.Tensor) -> torch.Tensor:
+    """Masked softmax-KL (reference ``softmax_kl_loss``): KL(target || input)
+    over axis 1, weighted by ``matching``, summed and divided by the mask's
+    sum. The target is detached: gradients reach ``input_logits`` only."""
+    logp = torch.log_softmax(input_logits, dim=1)
+    q = torch.softmax(target_logits, dim=1).detach()
+    kl = q * (torch.log(q.clamp_min(1e-12)) - logp)
+    return torch.sum(kl * matching) / torch.sum(matching)
+
+
 def mean_confidence_interval(accs, confidence: float = 0.95):
     """(mean, halfwidth) of a Student-t confidence interval over episode accs
     (scipy ``t.ppf``, as ``test_phase/test_few_shot.py:20-25``). Host side."""

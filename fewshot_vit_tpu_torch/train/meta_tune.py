@@ -37,6 +37,7 @@ from .runner import (
     model_dtype,
     parse_args,
     save_dir_for,
+    visualize_datasets,
 )
 from .state import TrainState
 
@@ -51,7 +52,8 @@ def check_standard_episodic(head, name: str) -> None:
             f"model {name!r} does not implement the standard episodic "
             "(x_shot, x_query) -> (E, Q, way) logits contract and cannot be "
             "meta-tuned by this loop. It is a research/eval-only or "
-            "phase-specific head (DeepEMD: train/meta_tune_emd.py).")
+            "phase-specific head — see docs/PARITY.md (research ports) and "
+            "train/meta_tune_emd.py (DeepEMD).")
 
 
 def main(cfg, args) -> TrainState:
@@ -63,6 +65,8 @@ def main(cfg, args) -> TrainState:
     train_ds = build_dataset(cfg, "train_dataset")
     val_ds = build_dataset(cfg, "val_dataset") or train_ds
     tval_ds = build_dataset(cfg, "tval_dataset")  # optional second monitoring split
+    visualize_datasets(logger, cfg, train_dataset=train_ds, val_dataset=val_ds,
+                       tval_dataset=tval_ds)
 
     way = int(cfg.get("n_train_way", cfg.get("n_way", 5)))
     shot = int(cfg.get("n_train_shot", cfg.get("n_shot", 1)))

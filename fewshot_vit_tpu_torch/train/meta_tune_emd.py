@@ -9,7 +9,9 @@ shot > 1, BN frozen on running statistics, fixed validation episodes,
 appends ``results.txt``. With ``solver: sinkhorn_pallas`` the training
 forward sends its flows through the CUDA Sinkhorn kernel
 (``kernels/sinkhorn.py``); the flows are constants of the graph, so there is
-no backward kernel.
+no backward kernel. ``solver: exact`` trains and validates with the C++
+simplex's flows, computed on the host (``heads/deepemd.py::exact_flows``),
+as JAX accepts it. ``visualize_datasets: true`` writes a grid PNG of each split.
 
 Episode index order is the reference's INTERLEAVED layout: index t*way + w
 is class w, item t; query labels are ``tile(arange(way), query)``.
@@ -252,6 +254,7 @@ def main(cfg, args) -> TrainState:
         load_encoder_from_checkpoint,
         model_dtype,
         save_dir_for,
+        visualize_datasets,
     )
 
     dev = resolve_device(args.device)
@@ -264,6 +267,7 @@ def main(cfg, args) -> TrainState:
 
     train_ds = build_dataset(cfg, "train_dataset")
     val_ds = build_dataset(cfg, "val_dataset") or train_ds
+    visualize_datasets(logger, cfg, train_dataset=train_ds, val_dataset=val_ds)
 
     way = int(cfg.get("way", 5))
     shot = int(cfg.get("shot", 1))

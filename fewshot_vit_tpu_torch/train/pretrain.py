@@ -44,6 +44,8 @@ from .runner import (
     model_dtype,
     parse_args,
     save_dir_for,
+    visualize_augmented,
+    visualize_datasets,
 )
 from .state import TrainState, resume_train_state
 
@@ -57,6 +59,8 @@ def main(cfg, args) -> TrainState:
     train_ds = build_dataset(cfg, "train_dataset")
     val_ds = build_dataset(cfg, "val_dataset")
     fs_ds = build_dataset(cfg, "fs_dataset")
+    visualize_datasets(logger, cfg, train_dataset=train_ds, val_dataset=val_ds,
+                       fs_dataset=fs_ds)
     n_classes = train_ds.n_classes
     # the model's input size is the post-augmentation size, not the stored one
     img = int(cfg.get("image_size", 80 if cfg.get("augment") else train_ds.images.shape[1]))
@@ -95,6 +99,8 @@ def main(cfg, args) -> TrainState:
         from ..data.augment import make_cropaug_fn
 
         preprocess_fn = make_cropaug_fn(train_ds.mean, train_ds.std, out_size=img)
+        visualize_augmented(logger, cfg, train_ds, preprocess_fn, train_ds.mean, train_ds.std,
+                            dev)
     sam_kw = {}
     if cfg.get("optimizer") == "sam":
         oargs = dict(cfg.get("optimizer_args", {}) or {})

@@ -54,10 +54,43 @@ def check_single_device(cfg: Config) -> None:
     for key in ("distributed", "mesh"):
         if cfg.get(key):
             raise NotImplementedError(f"'{key}:' (multi-device training) {AUXILIARIES}")
-    if cfg.get("visualize_datasets"):
-        # the sample grids of each split and of each augmented training view
-        # (the JAX package's visualize_datasets / visualize_augmented)
-        raise NotImplementedError(f"'visualize_datasets: true' (sample-grid PNGs) {AUXILIARIES}")
+
+
+def visualize_datasets(logger, cfg: Config, **named_datasets) -> None:
+    """``visualize_datasets: true`` -> one sample-grid PNG per split in the
+    run directory, ``visualize_<name>.png`` (the reference flag of the same
+    name in every phase config)."""
+    if not cfg.get("visualize_datasets"):
+        return
+    for name, ds in named_datasets.items():
+        if ds is not None:
+            logger.visualize_dataset(ds, name)
+
+
+def visualize_augmented(logger, cfg: Config, dataset, aug_fn, mean, std, device,
+                        views=("aug",), n_samples: int = 16, draws=None) -> None:
+    """``visualize_datasets: true`` -> one grid PNG per augmented view of
+    ``n_samples`` training images, as the model sees them, denormalized back
+    to uint8: ``visualize_train_aug.png`` (cropaug) or
+    ``visualize_train_{strong,weak}.png`` (SUN's dual view). The images are
+    the JAX package's draw (``np.random.default_rng(0)``); the augmentation
+    runs on ``device`` from a generator seeded 0, or from ``draws`` (the
+    pipeline's injected draws) when given."""
+    if not cfg.get("visualize_datasets") or aug_fn is None:
+        return
+    import numpy as np
+
+    from ..data.transforms import denormalize
+
+    rng = np.random.default_rng(0)
+    idx = np.sort(rng.choice(len(dataset), min(n_samples, len(dataset)), replace=False))
+    images = torch.from_numpy(np.asarray(dataset.images[idx])).to(device)
+    gen = torch.Generator(device=images.device).manual_seed(0)
+    out = aug_fn(images, gen, draws=draws)
+    out = out if isinstance(out, tuple) else (out,)
+    for vname, v in zip(views, out):
+        u8 = np.clip(denormalize(v, mean, std).cpu().numpy() * 255.0, 0, 255)
+        logger.image_grid(f"visualize_train_{vname}", u8.astype(np.uint8))
 
 
 def save_dir_for(cfg: Config, args: argparse.Namespace, default_name: str) -> str:

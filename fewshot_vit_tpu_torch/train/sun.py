@@ -44,6 +44,8 @@ from .runner import (
     model_dtype,
     parse_args,
     save_dir_for,
+    visualize_augmented,
+    visualize_datasets,
 )
 from .state import TrainState
 
@@ -73,6 +75,7 @@ def main(cfg, args) -> TrainState:
 
     train_ds = build_dataset(cfg, "train_dataset")
     fs_ds = build_dataset(cfg, "fs_dataset")
+    visualize_datasets(logger, cfg, train_dataset=train_ds, fs_dataset=fs_ds)
     n_classes = train_ds.n_classes
     img = int(cfg.get("image_size", 80))
     encoder_args = dict(cfg.get("model_args.encoder_args", {}) or {})
@@ -109,6 +112,8 @@ def main(cfg, args) -> TrainState:
 
         dual_view_fn = make_dual_view_fn(train_ds.mean, train_ds.std, out_size=img,
                                          strong_prob=float(cfg.get("strong_prob", 0.5)))
+        visualize_augmented(logger, cfg, train_ds, dual_view_fn, train_ds.mean, train_ds.std,
+                            dev, views=("strong", "weak"))
     epoch_fn = make_sun_epoch(
         dual_view_fn, train_ds.mean, train_ds.std, remat=bool(cfg.get("remat", False)),
         soft_k=int(cfg.get("tl_soft_k", 5)), bg_tokens=int(cfg.get("bg_token_num", 10)),

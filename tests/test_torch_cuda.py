@@ -341,3 +341,47 @@ def test_sun_step_teacher_launches_the_kernel(cuda_device, teacher_dtype, route)
     assert {r: after[r] - before[r] for r in after} == {
         r: (n if r == route else 0) for r in after}
     assert all(torch.isfinite(v) for v in m.values())
+
+
+def test_exact_flows_on_cuda_tensors_come_back_to_the_card(cuda_device):  # noqa: F811
+    """``solver_impl='exact'``: the simplex runs on the host and the flows
+    come back on the input's device; no Sinkhorn kernel is launched, and
+    the logits equal those of the same problem on the CPU."""
+    from fewshot_vit_tpu_torch.heads.deepemd import exact_flows
+
+    rng = np.random.default_rng(11)
+    proto = torch.from_numpy(rng.normal(size=(2, 5, 13, 32)).astype(np.float32))
+    query = torch.from_numpy(rng.normal(size=(2, 15, 13, 32)).astype(np.float32))
+    cost = torch.rand(4, 13, 13, generator=torch.Generator().manual_seed(0))
+    w = normalize_weights(torch.rand(4, 13, generator=torch.Generator().manual_seed(1)) + 0.1)
+    flow = exact_flows(cost.to(cuda_device), w.to(cuda_device), w.to(cuda_device))
+    assert flow.device == cuda_device and flow.dtype == torch.float32
+    torch.testing.assert_close(flow.cpu(), exact_flows(cost, w, w), rtol=0, atol=0)
+    n = tks.sinkhorn_pallas.launches
+    got = emd_logits(proto.to(cuda_device), query.to(cuda_device), solver_impl="exact")
+    assert got.device == cuda_device and tks.sinkhorn_pallas.launches == n
+    torch.testing.assert_close(got.cpu(), emd_logits(proto, query, solver_impl="exact"),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_capture_on_the_card_leaves_the_mhsa_launches(cuda_device):  # noqa: F811
+    """``--real-attn`` on a fused-attention Visformer: 1 launch per forward
+    (one stage-2 block here) inside the capture as outside, stage 3
+    captured, the same outputs."""
+    from fewshot_vit_tpu_torch.eval.visualize import real_attention_maps
+    from fewshot_vit_tpu_torch.models.common import capture_attention
+
+    enc = Visformer(**SMALL_VISFORMER, use_pallas_attn=True, device=cuda_device)
+    x = torch.randn(4, 80, 80, 3, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    with torch.no_grad():
+        n = tk.fused_mhsa.launches
+        plain = enc(x)
+        assert tk.fused_mhsa.launches == n + 1
+        with capture_attention() as found:
+            cap = enc(x)
+        assert tk.fused_mhsa.launches == n + 2 and len(found) == 1
+        maps = real_attention_maps(enc, x)
+    assert tk.fused_mhsa.launches == n + 3
+    assert maps.shape == (4, 5, 5) and 0.0 <= maps.min() and maps.max() <= 1.0
+    for a, b in zip(plain, cap):
+        assert torch.equal(a, b)

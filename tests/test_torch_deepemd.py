@@ -110,9 +110,13 @@ def test_emd_logits_match_jax(monkeypatch, impl, n):
 
 
 def test_emd_logits_exact_solver_is_queued():
-    x = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match="exact"):
-        td.emd_logits(x, x, solver_impl="exact")
+    """The queued solver is in: ``solver_impl='exact'`` (the C++ simplex on
+    the host) gives JAX's exact logits (``pure_callback`` on the CPU)."""
+    proto, query = _rand(10, 2, 3, 9, 16), _rand(11, 2, 6, 9, 16)
+    want = jd.emd_logits(jnp.asarray(proto), jnp.asarray(query), solver_impl="exact")
+    got = td.emd_logits(torch.from_numpy(proto), torch.from_numpy(query), solver_impl="exact")
+    assert got.shape == (2, 6, 3) and got.dtype == torch.float32
+    _close(got, want)
 
 
 def test_emd_logits_gradient_only_through_sim():

@@ -46,7 +46,11 @@ def test_scan_covers_the_port():
             "transforms.py",
             # the rest of the encoder zoo
             "nest.py", "swin.py", "levit.py", "lvvit.py", "deit.py", "resnet.py",
-            "resnet12.py", "convnet4.py", "fold.py"} <= names
+            "resnet12.py", "convnet4.py", "fold.py",
+            # solver: exact, the research heads, the visualization paths
+            "emd.py", "meta_token.py", "visualize.py"} <= names
+    assert (ROOT / "fewshot_vit_tpu_torch" / "native" / "emd_solver.cpp").is_file()
+    assert (ROOT / "fewshot_vit_tpu_torch" / "utils" / "__init__.py") in _port_files()
     assert len([p for p in _port_files() if p.name == "token_label.py"]) == 2  # ops and heads
 
 
@@ -181,3 +185,49 @@ def test_entry_points_default_to_cuda():
                token_label.make_token_label):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert inspect.signature(Visformer).parameters["device"].default == "cuda"
+
+
+def test_native_solver_builds_only_under_build():
+    """``native/emd.py`` compiles its own copy of the simplex into
+    ``build/native/`` at the root of the checkout, never into the JAX
+    package's ``native/`` directory."""
+    from fewshot_vit_tpu_torch.native import emd
+
+    assert emd.SRC == ROOT / "fewshot_vit_tpu_torch" / "native" / "emd_solver.cpp"
+    assert emd.BUILD_DIR == ROOT / "build" / "native" and emd.LIB.parent == emd.BUILD_DIR
+    src = (ROOT / "fewshot_vit_tpu_torch" / "native" / "emd.py").read_text()
+    assert "fewshot_vit_tpu/native" not in src.replace("``fewshot_vit_tpu/native/emd.py``", "")
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from fewshot_vit_tpu_torch.eval import visualize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("dataset: synthetic\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        visualize.main(["--config", str(cfg), "--out", str(tmp_path / "v")])
+    for name in ("meta-token", "token-label-ep"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            models.make(name, encoder="visformer_micro_80")
+    assert not (tmp_path / "v").exists()
+
+
+def test_the_rest_of_the_auxiliaries_refuse_by_name(tmp_path):
+    """``mesh:``, ``distributed:``, ``--int8``, ``--mesh-data`` and
+    ``eval.export`` wait for item f and say so; ``visualize_datasets:`` no
+    longer refuses."""
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.eval import export
+
+    for key in ("mesh", "distributed"):
+        with pytest.raises(NotImplementedError, match="item f of the order list"):
+            runner.check_single_device(Config({key: {"data": 4}}))
+    runner.check_single_device(Config({"visualize_datasets": True}))
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("dataset: synthetic\n")
+    for flag in (["--int8"], ["--mesh-data", "2"]):
+        with pytest.raises(NotImplementedError, match="item f of the order list"):
+            run.main(["--config", str(cfg), "--device", "cpu"] + flag)
+    with pytest.raises(NotImplementedError, match="item f of the order list"):
+        export.main([])

@@ -211,10 +211,21 @@ def test_cli_on_cpu_writes_checkpoints_and_resumes(tmp_path, capsys):
     assert len(resumed.optimizer.state_dict()["state"]) == len(list(resumed.module.parameters()))
 
 
+def test_cli_writes_the_dataset_grids(tmp_path):
+    """``visualize_datasets: true``: one grid PNG per split, JAX's names."""
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(CLI_CONFIG % (1, "visualize_datasets: true"))
+    meta_tune.main(*parse_args("test", ["--config", str(cfg), "--save-root", str(tmp_path / "s"),
+                                        "--name", "run", "--device", "cpu"]))
+    pngs = sorted(p.name for p in (tmp_path / "s" / "run").glob("*.png"))
+    assert pngs == ["visualize_train_dataset.png", "visualize_tval_dataset.png",
+                    "visualize_val_dataset.png"]
+
+
 def test_cli_refuses_multi_device_keys_and_a_missing_card(tmp_path, monkeypatch):
     cfg = tmp_path / "c.yaml"
     argv = ["--config", str(cfg), "--save-root", str(tmp_path / "s"), "--device", "cpu"]
-    for key in ("mesh: {data: 4}", "distributed: true", "visualize_datasets: true"):
+    for key in ("mesh: {data: 4}", "distributed: true"):
         cfg.write_text(CLI_CONFIG % (1, key))
         with pytest.raises(NotImplementedError, match="auxiliaries slice"):
             meta_tune.main(*parse_args("test", argv))

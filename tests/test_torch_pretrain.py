@@ -291,9 +291,20 @@ def test_cli_on_cpu_trains_evaluates_checkpoints_and_resumes(tmp_path, capsys):
     assert (tmp_path / "save" / "sam" / "epoch-ex" / "arrays.pt").is_file()
 
 
+def test_cli_writes_the_dataset_and_augmentation_grids(tmp_path):
+    """``visualize_datasets: true``: a grid per split and the cropaug view."""
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(CLI_CONFIG % (1, "adamw", 0, "visualize_datasets: true"))
+    pretrain.main(*runner.parse_args("t", ["--config", str(cfg), "--device", "cpu", "--name",
+                                           "run", "--save-root", str(tmp_path / "s")]))
+    pngs = sorted(p.name for p in (tmp_path / "s" / "run").glob("*.png"))
+    assert pngs == ["visualize_fs_dataset.png", "visualize_train_aug.png",
+                    "visualize_train_dataset.png", "visualize_val_dataset.png"]
+
+
 def test_cli_defaults_to_the_card_and_refuses_auxiliaries(tmp_path, monkeypatch):
     cfg = tmp_path / "c.yaml"
-    for extra in ("visualize_datasets: true", "mesh: {data: 4}"):
+    for extra in ("mesh: {data: 4}", "distributed: true"):
         cfg.write_text(CLI_CONFIG % (1, "adamw", 0, extra))
         with pytest.raises(NotImplementedError, match="auxiliaries slice"):
             pretrain.main(*runner.parse_args("t", ["--config", str(cfg), "--device", "cpu",

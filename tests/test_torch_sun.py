@@ -209,9 +209,20 @@ def test_cli_chain_pretrain_then_sun_on_cpu(tmp_path, capsys):
     assert "teacher is randomly initialized" in capsys.readouterr().out
 
 
-def test_cli_defaults_to_the_card_and_refuses_auxiliaries(tmp_path, monkeypatch):
+def test_cli_writes_the_dataset_and_dual_view_grids(tmp_path):
+    """``visualize_datasets: true``: a grid per split and both SUN views."""
     cfg = tmp_path / "c.yaml"
     cfg.write_text(SUN_CLI % ("null", 1, "float32", "visualize_datasets: true"))
+    sun.main(*runner.parse_args("t", ["--config", str(cfg), "--device", "cpu", "--name", "run",
+                                      "--save-root", str(tmp_path / "s")]))
+    pngs = sorted(p.name for p in (tmp_path / "s" / "run").glob("*.png"))
+    assert pngs == ["visualize_fs_dataset.png", "visualize_train_dataset.png",
+                    "visualize_train_strong.png", "visualize_train_weak.png"]
+
+
+def test_cli_defaults_to_the_card_and_refuses_auxiliaries(tmp_path, monkeypatch):
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(SUN_CLI % ("null", 1, "float32", "mesh: {data: 4}"))
     with pytest.raises(NotImplementedError, match="auxiliaries slice"):
         sun.main(*runner.parse_args("t", ["--config", str(cfg), "--device", "cpu",
                                           "--save-root", str(tmp_path / "s")]))
