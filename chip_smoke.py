@@ -6,8 +6,10 @@ Phases, in order; any failure exits non-zero:
   2. print the card's name and power limit (nvidia-smi);
   3. build every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
      all started together) and load it;
-  4. hold each kernel against its plain PyTorch version on the card, every
-     output pre-filled with NaN and every route asserted: fused MHSA in fp32
+  4. hold each kernel against its plain PyTorch version on the card, the
+     bare launch of each route writing an output pre-filled with NaN and
+     the op (the path every caller takes) beside it, every route asserted:
+     fused MHSA in fp32
      and bf16 at the SUN-M shape and at a short and a long case, more bf16
      shapes through the tensor-core route, and a neighbour check (only heads
      0, 2, 4 computed: heads 1, 3, 5 must stay NaN); Sinkhorn in fp32 at the
@@ -25,7 +27,7 @@ Phases, in order; any failure exits non-zero:
      grid (1 Sinkhorn launch on the packed route and 2 MHSA launches on the
      tensor-core route per episode batch), then fp32 with
      the kernel against ``sinkhorn_detached`` on the same episodes; 1-shot
-     fcn (N = 25); one batch of 5-shot grid with SFC;
+     fcn (N = 25); one batch of 5-shot grid with SFC (20 steps);
   7. time both paths (episodes/s in turns: the default routes, the old
      routes forced, the kernel's alternative) and each kernel in turns (old
      route, new route), its plain version and, for MHSA,
@@ -100,7 +102,7 @@ Phases, in order; any failure exits non-zero:
      a Pallas kernel in the JAX package;
  21. (after phase 16) ``solver: exact``: the ``eval.run_emd`` CLI from a
      DeepEMD checkpoint this phase writes, the geometry of
-     ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 200
+     ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 104
      1-shot episodes, bf16 encoder, 8 a batch: the host-solver warning, 2
      MHSA launches a batch and no Sinkhorn launch; the same episodes with
      ``sinkhorn_pallas`` in process; accuracies, episodes/s and the host
@@ -125,8 +127,39 @@ Phases, in order; any failure exits non-zero:
      maps in [0, 1], the card's maps within 1e-3 of the CPU port's from the
      same weights and images; one pretrain CLI epoch with
      ``visualize_datasets: true`` writes JAX's four PNG names;
- 24. print the ``training``, ``eval_clis``, ``slice8`` and kernels' JSON
-     lines, then the result line.
+ 24. (after phase 23, from the phase-14 ``.pth``) int8: each kind of int8
+     layer at the eval CLI's batch of 640 images (the stem's 3x3/s2 with K
+     padded from 27 to 32, a 3x3 with K 1152, the grouped 3x3, a 2x2/s2
+     patch embed, qkv, the K 2048 1x1) gives an int32 ``torch._int_mm``
+     result EQUAL to a float64 product of the same int8 operands; then the
+     ``eval.run --int8`` CLI with and without ``--bf16`` beside ``--fold-bn``
+     in both dtypes, 400 1-shot episodes each: accuracies equal to
+     in-process ``evaluate`` of the head built as the CLI builds it,
+     episodes/s, 2 MHSA launches a batch (tensor-core route in bf16,
+     general in fp32) and 2 for ``--int8``'s calibration forward,
+     |acc(int8) - acc(folded fp32)| < 0.08 (JAX's gate);
+ 25. ``eval.export`` through its CLI: the episode scorer (``--fold-bn
+     --bf16`` and fp32, 8 episodes a call, and an fp32 one traced on the CPU
+     with ``--platforms cpu,cuda``), the encoder (batch 128), and the EMD
+     scorer at ``sund_mini_visformer_1shot.yaml``'s geometry with ``solver:
+     sinkhorn_pallas``, 1-shot and 5-shot with SFC at the 5-shot config's
+     ``sfc_*``: export seconds, ``.pt2`` MB, graph nodes; no kernel launched
+     while tracing;
+ 26. every artifact loaded and called in ONE fresh process that imports
+     only torch and ``fewshot_vit_tpu_torch.kernels`` (for the two ops), on
+     seeded uint8 episodes: ms per call and the launches counted inside each
+     call (fused MHSA 2 per encoder forward, Sinkhorn 1 per EMD call and 0
+     for SFC's inner flows); held against the in-process forward (fp32
+     logits within 1e-4; bf16 and 5-shot SFC by the accuracy rule), and the
+     ``cpu,cuda`` artifact moved to the card against the one traced there;
+ 27. the pretrain CLI for 2 epochs with ``--profile-dir``: a Chrome trace of
+     epoch 2 with CUDA kernel events;
+ 28. both kernels re-timed through their custom ops at the PERF table's
+     shapes: events around 20 calls, the device work alone (calls queued
+     behind a sleeping kernel) for the op and the bare launch, and the
+     host's dispatch time a call;
+ 29. print the ``training``, ``eval_clis``, ``slice8``, ``slice9`` and
+     kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
@@ -152,7 +185,9 @@ SUND_EP_PER_BATCH = 8       # SUN-D: 8 * 80 images * 13 patches = 8,320 encoder 
 SUND_EPISODES = 64          # SUN-D grid run: 8 episode batches
 SUND_FCN_EPISODES = 32
 SUND_TIMED = 32
-SFC_KW = {"steps": 100, "lr": 100.0, "batch_size": 4}  # the SUN-D eval CLI's defaults
+# the SUN-D eval CLI's lr and batch at 20 of its 100 steps: the export phase
+# runs the 5-shot config's full 100 steps in process and in its artifact
+SFC_KW = {"steps": 20, "lr": 100.0, "batch_size": 4}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
 # special-function units: 16 exp2/log2 results per clock per SM on compute
@@ -239,7 +274,7 @@ ZOO_PTH = ("nest_micro_v2_rel_80", "swin_micro_v2_resembed_ada_80", "levit_micro
 # of 0, so an optimizer step may leave it where it was
 ZOO_STATIC = {"levit_micro_80": ("encoder.blocks.2.proj.1.bn.bias",)}
 # slice 8: solver exact, the research heads, the visualization paths
-EXACT_EPISODES = 200        # the run_emd CLI with solver exact, bf16, 8 episodes a batch
+EXACT_EPISODES = 104        # the run_emd CLI with solver exact, bf16, 8 episodes a batch
 EXACT_CHECK_EPISODES = 64   # fp32 kernel vs plain attention under solver exact
 EXACT_PROBLEMS = 2000       # exact against Sinkhorn flows: at least this many problems
 HEAD_NAMES = ("token-label-ep", "token-label-ep-rw", "token-label-ep-cr", "token-label-v2",
@@ -316,13 +351,19 @@ def _ot_problem(b, n1, n2, gen, dev):
     return cost, w1, w2
 
 
+def _max_err(got, want) -> float:
+    """max |got - want| in fp32, a NaN counting as infinite."""
+    return (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+
+
 def _check_mhsa(gen, dev, b_main):
     """Phase 4, fused MHSA: kernel vs plain version, every case through heads
-    split out of a packed qkv tensor and an output written through a
-    (B, T, H, hd) view, as attention_core hands them over; the output starts
-    as NaN so an unwritten element cannot pass. Returns max|d| per case."""
+    split out of a packed qkv tensor. The bare launch writes a (B, T, H, hd)
+    view that starts as NaN, so an unwritten element cannot pass; the op,
+    called beside it, allocates its own output. Returns max|d| per case."""
     import torch
 
+    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa, fused_mhsa_reference
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -342,13 +383,14 @@ def _check_mhsa(gen, dev, b_main):
             q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
             out = torch.full((b, t, h, hd), float("nan"), dtype=dtype, device=dev)
             before = dict(fused_mhsa.route_launches)
-            got = fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2))
+            mhsa_mod._launch(q, k, v, out.transpose(1, 2), hd ** -0.5, None)
+            got = fused_mhsa(q, k, v, hd ** -0.5)
             want = fused_mhsa_reference(q, k, v, hd ** -0.5)
             torch.cuda.synchronize()
-            if fused_mhsa.route_launches[route] != before[route] + 1:
-                _fail(f"fused_mhsa {name} {dtype}: expected one launch on the {route} route, "
-                      f"counts went {before} -> {fused_mhsa.route_launches}")
-            err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+            if fused_mhsa.route_launches[route] != before[route] + 2:
+                _fail(f"fused_mhsa {name} {dtype}: expected two launches (bare, op) on the "
+                      f"{route} route, counts went {before} -> {fused_mhsa.route_launches}")
+            err = max(_max_err(o, want) for o in (out.transpose(1, 2), got))
             errs[(name, str(dtype))] = err
             ok = err <= TOL[str(dtype)]
             print(f"kernel vs plain {name} ({b},{h},{t},{hd}) {dtype}: "
@@ -358,8 +400,9 @@ def _check_mhsa(gen, dev, b_main):
                 _fail(f"fused_mhsa disagrees with its plain version at {name} {dtype}")
             if route == "tensor_core":  # the general route on the same inputs
                 out.fill_(float("nan"))
-                got = fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2), route="general")
-                err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+                mhsa_mod._launch(q, k, v, out.transpose(1, 2), hd ** -0.5, "general")
+                got = fused_mhsa(q, k, v, hd ** -0.5, route="general")
+                err = max(_max_err(o, want) for o in (out.transpose(1, 2), got))
                 if not err <= TOL[str(dtype)]:
                     _fail(f"fused_mhsa (general route forced) disagrees at {name}: {err:.3e}")
             del qkv, q, k, v, out, got, want
@@ -372,14 +415,15 @@ def _check_mhsa(gen, dev, b_main):
     q, k, v = (x.transpose(1, 2)[:, ::2] for x in qkv.unbind(2))
     out = torch.full((b, t, h, hd), float("nan"), dtype=bf16, device=dev)
     before = fused_mhsa.route_launches["tensor_core"]
-    got = fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2)[:, ::2])
+    mhsa_mod._launch(q, k, v, out.transpose(1, 2)[:, ::2], hd ** -0.5, None)
+    got = fused_mhsa(q, k, v, hd ** -0.5)
     want = fused_mhsa_reference(q, k, v, hd ** -0.5)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().nan_to_num(float("inf")).item()
+    err = max(_max_err(o, want) for o in (out.transpose(1, 2)[:, ::2], got))
     untouched = bool(out[:, :, 1::2].isnan().all())
     print(f"neighbour check ({b},{h},{t},{hd}) bf16, heads 0, 2, 4 computed: max|d|={err:.3e}, "
           f"heads 1, 3, 5 still NaN: {untouched}")
-    if fused_mhsa.route_launches["tensor_core"] != before + 1:
+    if fused_mhsa.route_launches["tensor_core"] != before + 2:
         _fail("the neighbour check did not take the tensor-core route")
     if not err <= TOL[str(bf16)] or not untouched:
         _fail("fused_mhsa wrote outside the heads it was given, or disagrees on them")
@@ -387,9 +431,11 @@ def _check_mhsa(gen, dev, b_main):
 
 
 def _check_sinkhorn(gen, dev):
-    """Phase 4, Sinkhorn: kernel vs plain version; returns max|d| per case."""
+    """Phase 4, Sinkhorn: kernel vs plain version, the bare launch into a
+    NaN-filled output and the op beside it; returns max|d| per case."""
     import torch
 
+    from fewshot_vit_tpu_torch.kernels import sinkhorn as sk_mod
     from fewshot_vit_tpu_torch.kernels.sinkhorn import (
         MAX_NODES,
         sinkhorn_pallas,
@@ -410,13 +456,15 @@ def _check_sinkhorn(gen, dev):
         cost, w1, w2 = _ot_problem(b, n1, n2, gen, dev)
         route = "packed" if max(n1, n2) <= 32 else "general"
         before = dict(sinkhorn_pallas.route_launches)
-        got = sinkhorn_pallas(cost, w1, w2, iters=iters, out=torch.full_like(cost, float("nan")))
+        bare = torch.full_like(cost, float("nan"))
+        sk_mod._launch(cost, w1, w2, bare, 0.05, iters, None)
+        got = sinkhorn_pallas(cost, w1, w2, iters=iters)
         want = sinkhorn_reference(cost, w1, w2, iters=iters)
         torch.cuda.synchronize()
-        if sinkhorn_pallas.route_launches[route] != before[route] + 1:
-            _fail(f"sinkhorn_pallas {name}: expected one launch on the {route} route, "
-                  f"counts went {before} -> {sinkhorn_pallas.route_launches}")
-        err = (got - want).abs().max().nan_to_num(float("inf")).item()
+        if sinkhorn_pallas.route_launches[route] != before[route] + 2:
+            _fail(f"sinkhorn_pallas {name}: expected two launches (bare, op) on the {route} "
+                  f"route, counts went {before} -> {sinkhorn_pallas.route_launches}")
+        err = max(_max_err(bare, want), _max_err(got, want))
         row = (got.sum(-1) - w1).abs().max().item()
         col = (got.sum(-2) - w2).abs().max().item()
         errs[name] = err
@@ -427,9 +475,10 @@ def _check_sinkhorn(gen, dev):
         if not ok:
             _fail(f"sinkhorn_pallas disagrees with its plain version at {name}")
         if route == "packed":  # the general route on the same problem
-            got = sinkhorn_pallas(cost, w1, w2, iters=iters, route="general",
-                                  out=torch.full_like(cost, float("nan")))
-            err = (got - want).abs().max().nan_to_num(float("inf")).item()
+            bare.fill_(float("nan"))
+            sk_mod._launch(cost, w1, w2, bare, 0.05, iters, "general")
+            got = sinkhorn_pallas(cost, w1, w2, iters=iters, route="general")
+            err = max(_max_err(bare, want), _max_err(got, want))
             if not err <= SINKHORN_TOL:
                 _fail(f"sinkhorn_pallas (general route forced) disagrees at {name}: {err:.3e}")
     return errs
@@ -2320,6 +2369,484 @@ def _visualize_pretrain_cli(tmp, tag):
                                             "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}}
 
 
+INT8_EPISODES = 400         # each --int8 / --fold-bn eval CLI, 1-shot, 8 episodes a batch
+EXPORT_EPB = 8              # episodes per episode-scorer artifact call
+EXPORT_BATCHES = 4          # episode batches scored through each scorer artifact
+EXPORT_EMD_EPB = {1: 8, 5: 1}  # episodes per EMD artifact call (5-shot: 100 SFC steps a call)
+EXPORT_ENCODER_BATCH = 128
+SFC5_KW = {"sfc_lr": 0.1, "sfc_update_step": 100, "sfc_bs": 4}  # sund_mini_visformer_5shot.yaml
+PR8_MS = {"fused_mhsa (10240*6,100,42) bfloat16": 1.3517, "fused_mhsa (512*6,100,42) bfloat16": 0.0835,
+          "fused_mhsa (512*6,100,42) float32": 0.6923, "sinkhorn_pallas (3000,13,13)": 0.0611}
+
+# A fresh process that imports only torch and the port's kernels module (for
+# the two ops), loads each exported artifact, calls it on saved uint8 inputs
+# and reports ms per call and the kernel launches counted inside the call.
+_SERVE = r'''
+import json, sys, time
+import torch
+from torch.export.passes import move_to_device_pass
+import fewshot_vit_tpu_torch.kernels as K
+
+spec = json.load(open(sys.argv[1]))
+torch.backends.cuda.matmul.allow_tf32 = False  # as the in-process forwards run
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device(spec["device"])
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+report = {}
+for a in spec["artifacts"]:
+    t0 = time.perf_counter()
+    ep = torch.export.load(a["path"])
+    if a["move"]:
+        ep = move_to_device_pass(ep, dev)
+    prog = ep.module()
+    load_s = time.perf_counter() - t0
+    batches = [[t.to(dev) for t in b] for b in torch.load(a["inputs"])]
+    outs, ms = [], []
+    with torch.no_grad():
+        if a["warm"]:
+            prog(*batches[0])
+        for batch in batches:
+            for w in (K.fused_mhsa, K.sinkhorn_pallas):
+                w.launches = 0
+                w.route_launches = {r: 0 for r in w.route_launches}
+            sync()
+            t0 = time.perf_counter()
+            outs.append(prog(*batch).cpu())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {"fused_mhsa": dict(K.fused_mhsa.route_launches),
+                        "sinkhorn_pallas": dict(K.sinkhorn_pallas.route_launches)}
+    torch.save(outs, a["out"])
+    report[a["name"]] = {"load_s": load_s, "ms_per_call": ms, "launches_last_call": launches,
+                         "mods": sorted(m for m in sys.modules if m.startswith("fewshot"))}
+print(json.dumps(report))
+'''
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    """ms per call of the device work alone: the calls are queued behind a
+    sleeping kernel, so the events around them time the card, not the host's
+    dispatch."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s at 1.98 GHz: time to queue every call
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _host_us(fn, reps: int = 200) -> float:
+    """Host microseconds per call to queue ``fn`` (no synchronization inside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _retime_ops(dev, tag):
+    """Phase 28: both kernels through their custom ops at the PERF table's
+    shapes: events around 20 op calls (the way every earlier phase times
+    them), the device work alone (calls queued behind a sleep) for the op and
+    for the bare launch without the op's dispatch, and the host's dispatch
+    time per op call."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
+    from fewshot_vit_tpu_torch.kernels import sinkhorn as sk_mod
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    rows = {}
+    h, t, hd = 6, 100, 42
+    for b, dtype in ((EP_PER_BATCH * WAY * (SHOT + QUERY), torch.bfloat16),
+                     (PRE_TRAIN["batch_size"], torch.bfloat16),
+                     (PRE_TRAIN["batch_size"], torch.float32)):
+        qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
+        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        out = mhsa_mod._token_major(q)
+        op = lambda: mhsa_mod.fused_mhsa(q, k, v, hd ** -0.5)  # noqa: E731
+        bare = lambda: mhsa_mod._launch(q, k, v, out, hd ** -0.5, None)  # noqa: E731
+        rows[f"fused_mhsa ({b}*{h},{t},{hd}) {str(dtype).split('.')[1]}"] = {
+            "op_ms": _time_ms(op), "op_device_ms": _device_ms(op),
+            "launch_device_ms": _device_ms(bare), "op_host_us": _host_us(op),
+            "launch_host_us": _host_us(bare), "route": mhsa_mod.mhsa_route(q)}
+        del qkv, q, k, v, out
+    for b, n in ((3000, 13), (3000, 25), (160, 13), (WAY * QUERY * WAY, 13)):
+        cost, w1, w2 = _ot_problem(b, n, n, gen, dev)
+        out = torch.empty_like(cost)
+        op = lambda: sk_mod.sinkhorn_pallas(cost, w1, w2)  # noqa: E731
+        bare = lambda: sk_mod._launch(cost, w1, w2, out, 0.05, 100, None)  # noqa: E731
+        rows[f"sinkhorn_pallas ({b},{n},{n})"] = {
+            "op_ms": _time_ms(op), "op_device_ms": _device_ms(op),
+            "launch_device_ms": _device_ms(bare), "op_host_us": _host_us(op),
+            "launch_host_us": _host_us(bare), "route": sk_mod.sinkhorn_route(n, n)}
+    for name, r in rows.items():
+        r["pr8_ms"] = PR8_MS.get(name)
+        r["host_bound"] = r["op_ms"] > 1.2 * r["op_device_ms"]
+        print(f"timing {tag}: {name} through the op: {r['op_ms']:.4f} ms per call (events "
+              f"around 20 calls), device work {r['op_device_ms']:.4f} ms (bare launch "
+              f"{r['launch_device_ms']:.4f}), host dispatch {r['op_host_us']:.1f} us a call "
+              f"(bare launch {r['launch_host_us']:.1f})"
+              f"{', host-bound' if r['host_bound'] else ''}; {r['route']} route; PR 8: "
+              f"{r['pr8_ms']}")
+    return rows
+
+
+def _int8_products(dev, tag):
+    """Phase 24a: each kind of int8 layer of the encoder at the eval CLI's
+    batch (640 images): the int32 result of ``torch._int_mm`` (after im2col
+    for the convs) must EQUAL a float64 product of the same int8 operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from fewshot_vit_tpu_torch.models import quant
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=gen, device=dev,  # noqa: E731
+                                  dtype=torch.int64).to(torch.int8)
+    b = ZOO_BATCH
+    convs = (("stem conv1 3x3/s2, K 27 padded to 32", (b, 80, 80, 3), (64, 3, 3, 3), 2, 1, 1),
+             ("stem conv3 3x3, K 1152", (b, 40, 40, 128), (128, 128, 3, 3), 1, 1, 1),
+             ("stage-1 grouped 3x3, g 8, K 288", (b, 20, 20, 256), (256, 32, 3, 3), 1, 1, 8),
+             ("patch embed 2x2/s2, K 512", (b, 20, 20, 128), (256, 128, 2, 2), 2, 0, 1))
+    dense = (("stage-2 qkv, K 256, N 756", (b * 100, 256), (756, 256)),
+             ("stage-3 MLP conv3, K 2048", (b * 25, 2048), (512, 2048)))
+    out = {}
+    for name, xs, ws, st, pad, g in convs:
+        q, w = i8(*xs), i8(*ws)
+        y = torch.cat(list(quant.conv_int32_chunks(q, w, st, pad, g)))
+        want = F.conv2d(q.permute(0, 3, 1, 2).double(), w.double(), None, st, pad, 1, g)
+        out[name] = bool(y.dtype == torch.int32 and torch.equal(y.double(), want.permute(0, 2, 3, 1)))
+        del q, w, y, want
+    for name, xs, ws in dense:
+        q, w = i8(*xs), i8(*ws)
+        y = quant.int8_matmul(q, w)
+        out[name] = bool(y.dtype == torch.int32 and torch.equal(y.double(), q.double() @ w.double().T))
+        del q, w, y
+    torch.cuda.empty_cache()
+    print(f"int8 {tag}: int32 products equal to float64 on every layer kind: {out}")
+    if not all(out.values()):
+        _fail(f"an int8 product differs from float64: {out}")
+    return out
+
+
+def _int8_cli(dev, tmp, pth, tag):
+    """Phase 24b: ``eval.run --int8`` with and without ``--bf16`` beside
+    ``--fold-bn`` in both dtypes, on the same 400 episodes from the phase-14
+    ``.pth``; the CLI's accuracies equal in-process ``evaluate`` of the head
+    built as the CLI builds it, episodes/s from that run; 2 MHSA launches a
+    batch; |acc(int8) - acc(folded fp32)| < 0.08 (JAX's gate)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets
+    from fewshot_vit_tpu_torch.core.rng import DEFAULT_SEED
+    from fewshot_vit_tpu_torch.data.staging import upload_images
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval.episodic import evaluate
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
+    from fewshot_vit_tpu_torch.models.quant import quantize_encoder_in_head
+
+    data = {"n_classes": 20, "n_per_class": 600, "image_size": 80, "seed": 0}
+    cfg = {"dataset": "synthetic", "dataset_args": data, "encoder": ENCODER,
+           "model_args": {"encoder_args": {"use_pallas_attn": True}}, "load": pth}
+    path = _write_cfg(tmp, "eval_int8", cfg)
+    ds = datasets.make("synthetic", **data)
+    images_dev = upload_images(ds.images, dev)
+    n_batches = math.ceil(INT8_EPISODES / CLI_EP_PER_BATCH)
+    per = _mhsa_per_forward()
+    entry, counts, accs_all = {}, {}, {}
+    for label, flags, dtype, route in (
+            ("int8_bf16", ["--int8", "--bf16"], torch.bfloat16, "tensor_core"),
+            ("int8_fp32", ["--int8"], torch.float32, "general"),
+            ("fold_bf16", ["--fold-bn", "--bf16"], torch.bfloat16, "tensor_core"),
+            ("fold_fp32", ["--fold-bn"], torch.float32, "general")):
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        accs, _ = _cli(eval_run, ["--config", path, "--episodes", str(INT8_EPISODES),
+                                  "--device", str(dev)] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # --int8 runs one more encoder forward: the calibration batch
+        counts[f"eval_cli_{label}"] = _expect_counts(
+            f"eval CLI {label}", route, per * (n_batches + ("int8" in label)))
+        head = eval_run.load_model_for_eval(Config(cfg), dtype, dev)
+        head = (quantize_encoder_in_head(head, eval_run.calibration_images(ds, dev))
+                if "int8" in label else fold_encoder_in_head(head))
+        evaluate(head, ds, n_episodes=CLI_EP_PER_BATCH, seed=3, images_dev=images_dev,
+                 device=dev)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, want = evaluate(head, ds, n_episodes=INT8_EPISODES, ep_per_batch=CLI_EP_PER_BATCH,
+                              seed=DEFAULT_SEED, images_dev=images_dev, device=dev)
+        eps = INT8_EPISODES / (time.perf_counter() - t0)
+        if not np.array_equal(accs, want):
+            _fail(f"eval CLI {label}: the CLI and in-process evaluate disagree")
+        accs_all[label] = accs
+        entry[label] = {"acc": float(accs.mean()), "episodes_per_s": eps, "cli_wall_s": wall}
+        print(f"int8 {tag}: eval CLI {' '.join(flags)}, {INT8_EPISODES} episodes: acc "
+              f"{accs.mean():.4f}, in-process {eps:.1f} episodes/s at {CLI_EP_PER_BATCH} a batch, "
+              f"CLI wall {wall:.2f} s; launches {counts[f'eval_cli_{label}']}")
+        del head
+    for label in ("int8_bf16", "int8_fp32"):
+        d = abs(entry[label]["acc"] - entry["fold_fp32"]["acc"])
+        entry[label]["abs_d_acc_vs_fold_fp32"] = d
+        if not d < 0.08:
+            _fail(f"{label}: |acc - acc(folded fp32)| = {d:.4f}, JAX's gate is 0.08")
+    if not entry["fold_fp32"]["acc"] > 0.7:
+        _fail(f"the folded fp32 protocol is degenerate: acc {entry['fold_fp32']['acc']:.4f}")
+    del images_dev
+    torch.cuda.empty_cache()
+    return entry, counts
+
+
+def _emd_cfg(pth, shot):
+    cfg = {"test_dataset": "synthetic",
+           "test_dataset_args": {"n_classes": 20, "n_per_class": 600, "image_size": 80, "seed": 0},
+           "model_args": {"encoder": ENCODER, "encoder_args": {"use_pallas_attn": True}},
+           "load_encoder": pth, "deepemd": "grid", "patch_list": [2, 3], "patch_ratio": 2,
+           "temperature": 12.5, "solver": "sinkhorn_pallas", "image_size": 80}
+    return {**cfg, **SFC5_KW} if shot > 1 else cfg
+
+
+def _export_artifacts(dev, tmp, pth, tag):
+    """Phases 25-26: ``eval.export`` from the phase-14 ``.pth`` (the episode
+    scorer in bf16 and fp32 BN folded, one traced on the CPU for ``cpu,cuda``,
+    the encoder, the EMD scorer 1- and 5-shot with ``sinkhorn_pallas``),
+    each loaded and called in a fresh process that imports only torch and
+    the kernels module, held against the in-process forward: fp32 logits
+    within 1e-4, bf16 and 5-shot SFC by the accuracy rule; the kernels'
+    launches counted inside each artifact call."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets, models
+    from fewshot_vit_tpu_torch.core.rng import DEFAULT_SEED
+    from fewshot_vit_tpu_torch.data.staging import upload_images
+    from fewshot_vit_tpu_torch.data.transforms import normalize
+    from fewshot_vit_tpu_torch.eval import export as export_mod
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval.emd_eval import sample_emd_episode_indices
+    from fewshot_vit_tpu_torch.eval.episodic import sample_episode_indices
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
+    from fewshot_vit_tpu_torch.ops.episodes import make_nk_label, split_shot_query
+    from fewshot_vit_tpu_torch.ops.metric import per_episode_acc
+    from fewshot_vit_tpu_torch.train.meta_tune_emd import make_emd_episode_fn, make_patch_fn
+    from fewshot_vit_tpu_torch.train.runner import resolve_checkpoint
+
+    data = {"n_classes": 20, "n_per_class": 600, "image_size": 80, "seed": 0}
+    cfg = {"dataset": "synthetic", "dataset_args": data, "encoder": ENCODER,
+           "model_args": {"encoder_args": {"use_pallas_attn": True}}, "load": pth}
+    meta_path = _write_cfg(tmp, "export_meta", cfg)
+    emd_paths = {s: _write_cfg(tmp, f"export_emd{s}", _emd_cfg(pth, s)) for s in (1, 5)}
+    ds = datasets.make("synthetic", **data)
+    images_dev = upload_images(ds.images, dev)
+    per = _mhsa_per_forward()
+
+    # the inputs: seeded episodes of the synthetic split, uint8
+    idx = sample_episode_indices(ds, EXPORT_EPB * EXPORT_BATCHES, WAY, SHOT + QUERY,
+                                 EXPORT_EPB, 25)
+    scorer_in = [split_shot_query(images_dev[torch.from_numpy(i.astype(np.int64)).to(dev)],
+                                  WAY, SHOT, QUERY, EXPORT_EPB) for i in idx]
+    enc_in = images_dev[:EXPORT_ENCODER_BATCH]
+    emd_in = {}
+    for s, e in EXPORT_EMD_EPB.items():
+        ei = sample_emd_episode_indices(ds, e, WAY, s + QUERY, seed=26)
+        emd_in[s] = images_dev[torch.from_numpy(ei.astype(np.int64)).to(dev)]
+
+    arts = (("scorer_bf16", meta_path, ["--fold-bn", "--bf16", "--ep-per-batch", str(EXPORT_EPB)]),
+            ("scorer_fp32", meta_path, ["--fold-bn", "--ep-per-batch", str(EXPORT_EPB)]),
+            ("scorer_fp32_cpu_cuda", meta_path, ["--fold-bn", "--ep-per-batch", str(EXPORT_EPB),
+                                                 "--platforms", "cpu,cuda"]),
+            ("encoder_fp32", meta_path, ["--encoder-only", "--batch", str(EXPORT_ENCODER_BATCH)]),
+            ("emd_1shot", emd_paths[1], ["--emd", "--shot", "1",
+                                         "--ep-per-batch", str(EXPORT_EMD_EPB[1])]),
+            ("emd_5shot", emd_paths[5], ["--emd", "--shot", "5",
+                                         "--ep-per-batch", str(EXPORT_EMD_EPB[5])]))
+    entry, spec = {}, []
+    for name, path, flags in arts:
+        out = os.path.join(tmp, f"{name}.pt2")
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t0 = time.perf_counter()
+        ep, text = _cli(export_mod, ["--config", path, "--out", out, "--device", str(dev)] + flags)
+        export_s = time.perf_counter() - t0
+        if fused_mhsa.launches or sinkhorn_pallas.launches:
+            _fail(f"exporting {name} launched a kernel: tracing must not run one")
+        if "exported " not in text:
+            _fail(f"eval.export {name}: no 'exported' line")
+        nodes = sum(len(list(g.graph.nodes)) for g in ep.graph_module.modules()
+                    if isinstance(g, torch.fx.GraphModule))
+        entry[name] = {"export_s": export_s, "mb": os.path.getsize(out) / 1e6,
+                       "nodes": len(list(ep.graph.nodes)), "nodes_with_scan_bodies": nodes}
+        inputs = (scorer_in if name.startswith("scorer") else
+                  [(enc_in,)] if name.startswith("encoder") else [(emd_in[int(name[4])],)])
+        in_path = os.path.join(tmp, f"{name}_in.pt")
+        torch.save([[t.cpu() for t in batch] for batch in inputs], in_path)
+        # every call but the 5-shot one's (100 SFC steps) follows a warm call
+        spec.append({"name": name, "path": out, "inputs": in_path, "warm": name != "emd_5shot",
+                     "move": name.endswith("cpu_cuda"),
+                     "out": os.path.join(tmp, f"{name}_out.pt")})
+        del ep
+    spec_path = os.path.join(tmp, "serve.json")
+    with open(spec_path, "w") as f:
+        json.dump({"device": str(dev), "artifacts": spec}, f)
+    serve_py = os.path.join(tmp, "serve.py")
+    with open(serve_py, "w") as f:
+        f.write(_SERVE)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, serve_py, spec_path], capture_output=True, text=True,
+                          env=env, timeout=600)
+    serve_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+        _fail(f"the fresh serving process failed (exit {proc.returncode})")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"export {tag}: the fresh serving process ran in {serve_s:.1f} s, modules of the port "
+          f"it imported: {report['scorer_bf16']['mods']}")
+
+    # the in-process forwards on the same inputs
+    want = {}
+    with torch.no_grad():
+        for dtype, key in ((torch.bfloat16, "scorer_bf16"), (torch.float32, "scorer_fp32")):
+            head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), dtype, dev))
+            want[key] = [head(normalize(xs, ds.mean, ds.std), normalize(xq, ds.mean, ds.std)).cpu()
+                         for xs, xq in scorer_in]
+        want["scorer_fp32_cpu_cuda"] = want["scorer_fp32"]
+        head = eval_run.load_model_for_eval(Config(cfg), torch.float32, dev)
+        want["encoder_fp32"] = [head.encoder(normalize(enc_in, ds.mean, ds.std))[1].cpu()]
+        del head
+        for s in (1, 5):
+            c = Config(_emd_cfg(pth, s))
+            emd = models.make("deepemd", encoder=ENCODER,
+                              encoder_args={"use_pallas_attn": True}, solver="sinkhorn_pallas",
+                              temperature=12.5, device=dev, seed=DEFAULT_SEED)
+            resolve_checkpoint(c, emd, ENCODER)
+            sfc_kw = {"steps": SFC5_KW["sfc_update_step"], "lr": SFC5_KW["sfc_lr"],
+                      "batch_size": SFC5_KW["sfc_bs"]}
+            fn = make_emd_episode_fn(emd, WAY, s, QUERY, make_patch_fn("grid", [2, 3], 2.0, 80,
+                                                                       False),
+                                     ds.mean, ds.std, sfc=s > 1, sfc_kw=sfc_kw, seed=0)
+            _zero_counts(fused_mhsa, sinkhorn_pallas)
+            t0 = time.perf_counter()
+            want[f"emd_{s}shot"] = [fn(emd_in[s], list(range(EXPORT_EMD_EPB[s]))).cpu()]
+            torch.cuda.synchronize()
+            entry[f"emd_{s}shot"]["in_process_ms"] = (time.perf_counter() - t0) * 1e3
+            print(f"export {tag}: the in-process EMD {s}-shot forward of "
+                  f"{EXPORT_EMD_EPB[s]} episodes: {entry[f'emd_{s}shot']['in_process_ms']:.1f} ms")
+            del emd
+    counts, failed = {}, []
+    for name, _, _ in arts:
+        got = torch.load(os.path.join(tmp, f"{name}_out.pt"))
+        r = report[name]
+        g, w = torch.cat(got), torch.cat(want[name])
+        err = (g - w).abs().max().item()
+        e = entry[name]
+        e.update({"ms_per_call": r["ms_per_call"], "load_s": r["load_s"], "max_abs_d": err,
+                  "launches_per_call": r["launches_last_call"]})
+        n_mhsa = sum(r["launches_last_call"]["fused_mhsa"].values())
+        n_sk = sum(r["launches_last_call"]["sinkhorn_pallas"].values())
+        expect_mhsa = per  # one encoder forward per call
+        expect_sk = 1 if name.startswith("emd") else 0
+        counts[f"export_{name}"] = r["launches_last_call"]
+        if n_mhsa != expect_mhsa or n_sk != expect_sk:
+            failed.append(f"artifact {name}: expected {expect_mhsa} fused_mhsa and {expect_sk} "
+                          f"sinkhorn_pallas launches a call, counted {r['launches_last_call']}")
+        if name in ("scorer_bf16", "emd_5shot"):
+            lab = (make_nk_label(WAY, QUERY, g.shape[0]).to(g.device) if name.startswith("scorer")
+                   else torch.arange(WAY).repeat(QUERY)[None].expand(g.shape[0], -1))
+            a, b = per_episode_acc(g, lab).numpy(), per_episode_acc(w, lab).numpy()
+            differ, mean_d = float((a != b).mean()), float(abs(a - b).mean())
+            e.update({"episodes_differing": differ, "mean_abs_d_acc": mean_d,
+                      "acc": float(a.mean())})
+            ok = differ <= 0.01 and mean_d <= 0.005
+        else:
+            ok = err <= 1e-4
+        print(f"export {tag}: {name}: {e['export_s']:.1f} s to export, {e['mb']:.1f} MB, "
+              f"{e['nodes']} graph nodes ({e['nodes_with_scan_bodies']} with scan bodies); "
+              f"in a fresh process ms per call {[round(x, 2) for x in e['ms_per_call']]}, "
+              f"launches a call {r['launches_last_call']}; against the in-process forward "
+              f"max|d|={err:.3e}" + (f", episodes differing {e['episodes_differing']:.4f}, "
+                                     f"mean|dacc| {e['mean_abs_d_acc']:.5f}"
+                                     if "episodes_differing" in e else " (tol 1e-4)")
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"artifact {name} disagrees with the in-process forward")
+    if failed:
+        _fail("; ".join(failed))
+    d = max((torch.cat(torch.load(os.path.join(tmp, "scorer_fp32_cpu_cuda_out.pt")))
+             - torch.cat(torch.load(os.path.join(tmp, "scorer_fp32_out.pt")))).abs().max().item(),
+            0.0)
+    entry["cpu_cuda_vs_cuda_max_abs_d"] = d
+    print(f"export {tag}: the cpu,cuda artifact traced on the CPU and moved to the card against "
+          f"the one traced on the card: max|d|={d:.3e} (tol 1e-4)")
+    if not d <= 1e-4:
+        _fail("the artifact traced on the CPU and the one traced on the card disagree")
+    entry["serve_process_s"] = serve_s
+    del images_dev
+    torch.cuda.empty_cache()
+    return entry, counts
+
+
+def _profile_dir_phase(tmp, tag):
+    """Phase 27: the pretrain CLI for 2 epochs with ``--profile-dir``: a
+    Chrome trace of epoch 2 holding CUDA kernel events."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.train import pretrain
+    from fewshot_vit_tpu_torch.train.runner import parse_args
+
+    cfg = os.path.join(tmp, "pretrain_profile.yaml")
+    with open(cfg, "w") as f:
+        f.write(_CLI_PRETRAIN)
+    prof_dir = os.path.join(tmp, "profile")
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    t0 = time.perf_counter()
+    pretrain.main(*parse_args("chip_smoke pretrain", [
+        "--config", cfg, "--save-root", tmp, "--name", "pretrain_profile",
+        "--profile-dir", prof_dir]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    if traces != ["epoch2.trace.json"]:
+        _fail(f"--profile-dir wrote {traces}, expected ['epoch2.trace.json']")
+    path = os.path.join(prof_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    cats = {}
+    for ev in events:
+        cats[ev.get("cat")] = cats.get(ev.get("cat"), 0) + 1
+    kernels = cats.get("kernel", 0)
+    print(f"--profile-dir {tag}: pretrain CLI, 2 epochs in {wall:.1f} s; {path}: "
+          f"{os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, {kernels} CUDA kernel "
+          f"events, {cats.get('cpu_op', 0)} CPU op events")
+    if not kernels:
+        _fail("the --profile-dir trace holds no CUDA kernel event")
+    return {"wall_s": wall, "trace_mb": os.path.getsize(path) / 1e6, "events": len(events),
+            "kernel_events": kernels}, {
+        "pretrain_cli_profile_dir": {"fused_mhsa": dict(fused_mhsa.route_launches),
+                                     "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", default=None, help="write a profiler table here")
@@ -2599,6 +3126,18 @@ def main() -> int:
         slice8_launches.update(counts)
         slice8["phases_s"] = slice8_s + time.perf_counter() - t8
         print(f"slice 8 phases (21-23) {tag}: {slice8['phases_s']:.1f} s")
+        # phases 24-28: int8, the exported artifacts, --profile-dir, the ops re-timed
+        t9 = time.perf_counter()
+        slice9, slice9_launches = {"int8_products": _int8_products(dev, tag)}, {}
+        slice9["int8_cli"], counts = _int8_cli(dev, tmp, pth, tag)
+        slice9_launches.update(counts)
+        slice9["export"], counts = _export_artifacts(dev, tmp, pth, tag)
+        slice9_launches.update(counts)
+        slice9["profile_dir"], counts = _profile_dir_phase(tmp, tag)
+        slice9_launches.update(counts)
+        slice9["ops_retimed"] = _retime_ops(dev, tag)
+        slice9["phases_s"] = time.perf_counter() - t9
+        print(f"slice 9 phases (24-28) {tag}: {slice9['phases_s']:.1f} s")
     for entry in kernels:
         entry["train_launches"] = {
             path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
@@ -2611,11 +3150,14 @@ def main() -> int:
                                  for path, c in zoo_launches.items()}
         entry["slice8_launches"] = {path: sum(c[entry["name"]].values())
                                     for path, c in slice8_launches.items()}
+        entry["slice9_launches"] = {path: sum(c[entry["name"]].values())
+                                    for path, c in slice9_launches.items()}
     clis["zoo"] = zoo_eval
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"eval_clis": clis, "card": card}))
     print(json.dumps({"slice8": slice8, "card": card}))
+    print(json.dumps({"slice9": slice9, "card": card}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,12 +37,17 @@ Ported so far:
     ``-ep-cr``, ``-v2``, ``meta-token``, ``-v2``, ``-v3``) with their metric
     functions and the ``utils`` names, attention capture in Visformer, NesT
     and Swin, ``eval.visualize`` (``--real-attn``) and the trainers'
-    ``visualize_datasets`` grids.
+    ``visualize_datasets`` grids;
+  * slice 9: ``eval.run --int8`` (``models/quant.py``: int8 weights and
+    activations, int32 products through ``torch._int_mm``), ``eval.export``
+    (``torch.export`` programs that call both kernels as the custom ops
+    ``fewshot_vit_tpu_torch::fused_mhsa`` / ``::sinkhorn_pallas``),
+    ``core/watchdog.py`` and the trainers' ``--profile-dir``.
 
 Entry points (``models.make``, ``eval.episodic.evaluate``/``encode_dataset``,
 ``eval.emd_eval.evaluate_emd``, and ``python -m fewshot_vit_tpu_torch.X`` for
-X in ``eval.run``, ``eval.run_emd``, ``eval.visualize``, ``train.pretrain``, ``train.sun``,
-``train.meta_tune``, ``train.meta_tune_emd``) run on ``device="cuda"`` unless told
+X in ``eval.run``, ``eval.run_emd``, ``eval.visualize``, ``eval.export``,
+``train.pretrain``, ``train.sun``, ``train.meta_tune``, ``train.meta_tune_emd``) run on ``device="cuda"`` unless told
 ``device="cpu"``; without a card they raise.
 """
 

@@ -15,7 +15,11 @@ reference ``.pth`` files. Layouts:
     ``(O, I, 1, 1)`` for a 1x1-conv target (Visformer's);
   * a 4-D positional embedding is transposed NHWC -> NCHW only when the
     target's shape differs (Visformer's 2-D maps); NesT's token-major
-    (1, T, N, C) embeddings already match.
+    (1, T, N, C) embeddings already match;
+  * JAX's int8 tree (``models/quant.py``): each int8 ``kernel`` takes the
+    layouts above with its dtype kept, and ``wscale``, ``bias`` and the 0-d
+    ``ascale`` keep their names beside ``weight``, the buffers of the port's
+    ``QuantConv`` / ``QuantDense``.
 
 The target is the module (or state dict) passed as ``like``; without one the
 layout falls back to Visformer's (Dense -> 1x1 conv, except a head's ``fc``

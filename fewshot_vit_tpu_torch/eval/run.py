@@ -8,6 +8,7 @@ prototype instead.
 Run:
   python -m fewshot_vit_tpu_torch.eval.run --config configs/test_mini_1shot.yaml --shot 1 --fold-bn --bf16
   python -m fewshot_vit_tpu_torch.eval.run --config ... --sauc
+  python -m fewshot_vit_tpu_torch.eval.run --config ... --int8 [--bf16]
 
 The config names ``dataset``, ``dataset_args``, ``encoder`` and
 ``model_args.encoder_args`` as the JAX CLI's does, and the weights as
@@ -61,6 +62,17 @@ def load_model_for_eval(cfg: Config, dtype: torch.dtype = torch.float32, device:
     return head
 
 
+def calibration_images(ds: ArrayDataset, device: Any = "cuda") -> torch.Tensor:
+    """The JAX CLI's ``--int8`` calibration batch: min(256, N) images drawn
+    without replacement from ``np_rng(DEFAULT_SEED)`` (a random sample: the
+    images are class-contiguous, so a prefix would calibrate on about one
+    class), in index order, normalized, on ``device``."""
+    idx = rng_mod.np_rng(rng_mod.DEFAULT_SEED).choice(
+        len(ds.images), size=min(256, len(ds.images)), replace=False)
+    images = torch.from_numpy(np.asarray(ds.images[np.sort(idx)])).to(resolve_device(device))
+    return normalize(images, ds.mean, ds.std)
+
+
 @torch.inference_mode()
 def sauc_eval(head: torch.nn.Module, dataset: ArrayDataset, n_episodes: int, shot: int,
               query: int = 15, ep_per_batch: int = EP_PER_BATCH,
@@ -106,12 +118,13 @@ def main(argv=None) -> np.ndarray:
     p.add_argument("--fold-bn", action="store_true",
                    help="fold frozen-stats BNs into the adjacent convs (exact)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 encoder compute")
-    p.add_argument("--int8", action="store_true", help="not ported (int8 encoder weights)")
+    p.add_argument("--int8", action="store_true",
+                   help="EXPERIMENTAL: int8 encoder weights and static activation scales "
+                        "calibrated on a random sample of the eval set (implies --fold-bn; "
+                        "models/quant.py)")
     p.add_argument("--mesh-data", type=int, default=0, help="not ported (episode mesh)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(f"'--int8' (int8 encoder weights) {AUXILIARIES}")
     if args.mesh_data:
         raise NotImplementedError(f"'--mesh-data' (multi-device eval) {AUXILIARIES}")
     dev = resolve_device(args.device)
@@ -122,7 +135,11 @@ def main(argv=None) -> np.ndarray:
     head = load_model_for_eval(cfg, torch.bfloat16 if args.bf16 else torch.float32, dev)
     if not (cfg.get("load") or cfg.get("load_encoder")):
         print(RANDOM_WEIGHTS)
-    if args.fold_bn:  # after loading: the folded encoder has no BN entries
+    if args.int8:  # after loading; folds first, as JAX's quantize_encoder_in_head
+        from ..models.quant import quantize_encoder_in_head
+
+        head = quantize_encoder_in_head(head, calib_images=calibration_images(ds, dev))
+    elif args.fold_bn:  # after loading: the folded encoder has no BN entries
         from ..models.fold import fold_encoder_in_head
 
         head = fold_encoder_in_head(head)

@@ -20,6 +20,7 @@ Everything is batched over episodes: (E, way, N, C) prototypes against
 
 from __future__ import annotations
 
+import inspect
 import time
 import warnings
 from typing import Any, Optional, Sequence
@@ -33,7 +34,7 @@ from ..core.device import resolve_device
 from ..core.registry import models
 from ..core.rng import DEFAULT_SEED
 from .. import models as _models  # noqa: F401  (registers the encoders)
-from ..ops.emd import emd_distance, normalize_weights, sinkhorn
+from ..ops.emd import emd_distance, normalize_weights, sinkhorn, sinkhorn_scan
 from ..ops.metric import l2_normalize
 
 # --- node-feature math (node-major: (..., N, C)) --------------------------------
@@ -240,6 +241,108 @@ def sfc_refine(
                 buf = g if buf is None else momentum * buf + (1.0 - dampening) * g
                 p = p.detach() - lr * buf
     return p.detach()
+
+
+# emd_logits's matching settings and their defaults, the keywords
+# sfc_refine_explicit takes: its own signature, so the two cannot drift apart
+_EMD_DEFAULTS = {name: p.default for name, p in inspect.signature(emd_logits).parameters.items()
+                 if name in ("temperature", "metric", "norm", "solver_reg", "solver_iters")}
+
+
+def sfc_grad(proto: torch.Tensor, batch: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor, temperature: float = 12.5, norm: str = "center",
+             solver_reg: float = 0.05, solver_iters: int = 100) -> torch.Tensor:
+    """Gradient, in closed form, of SFC's per-episode loss
+    ``sum(CE(emd_logits(proto, batch), labels) * mask) / max(sum(mask), 1)``
+    with respect to ``proto`` (E, way, N, C); batch (E, bs, N, C), labels
+    (E, bs), mask (bs,). What autograd gives ``sfc_refine``, written out so
+    that a traced program holds no autograd:
+
+      * the flows are constants (stop-gradient Sinkhorn, here its ``scan``),
+        and so are the marginals they alone consume: the gradient reaches
+        ``proto`` only through the cosine similarity;
+      * d loss / d logits = (softmax - onehot) * mask / max(sum(mask), 1);
+      * logits[q, w] = T / Np * sum_nm flow[q, w, n, m] <q_hat[q, n], p_hat[w, m]>,
+        so d / d p_hat[w, m] = T / Np * sum_qn g[q, w] flow[q, w, n, m] q_hat[q, n];
+      * through ``l2_normalize`` (p_hat = x / max(|x|, eps)): (d - p_hat
+        <p_hat, d>) / |x|, or d / eps where the clamp holds; through
+        ``center_normalize``: d - mean_c(d).
+    """
+    eps = 1e-12  # l2_normalize's
+    w1 = normalize_weights(weight_vector(batch, proto))
+    w2 = normalize_weights(weight_vector(proto, batch).transpose(-2, -3))
+    cp, cq = center_normalize(proto, norm), center_normalize(batch, norm)
+    p_hat, q_hat = l2_normalize(cp), l2_normalize(cq)
+    sim = torch.einsum("...qnc,...wmc->...qwnm", q_hat, p_hat)   # as similarity_map
+    flow = sinkhorn_scan(1.0 - sim, w1, w2, reg=solver_reg, iters=solver_iters)
+    logits = emd_distance(sim, flow, temperature)                # (E, bs, way)
+    way = proto.shape[-3]
+    onehot = F.one_hot(labels, way).to(logits.dtype)
+    g = (torch.softmax(logits, dim=-1) - onehot) * (mask / torch.clamp(mask.sum(), min=1.0))[:, None]
+    d_hat = torch.einsum("eqw,eqwnm,eqnc->ewmc", g, flow, q_hat) * (temperature / sim.shape[-1])
+    nrm = torch.linalg.vector_norm(cp, dim=-1, keepdim=True)
+    d = torch.where(nrm > eps, (d_hat - p_hat * (p_hat * d_hat).sum(-1, keepdim=True)) / nrm,
+                    d_hat / eps)
+    return d - d.mean(dim=-1, keepdim=True) if norm == "center" else d
+
+
+def sfc_refine_explicit(
+    proto: torch.Tensor,
+    support: torch.Tensor,
+    way: int,
+    shot: int,
+    episode_ids: Optional[Sequence[int]] = None,
+    steps: int = 100,
+    lr: float = 0.1,
+    batch_size: int = 4,
+    momentum: float = 0.9,
+    dampening: float = 0.9,
+    perms: Optional[torch.Tensor] = None,
+    seed: int = DEFAULT_SEED,
+    **emd_kw: Any,
+) -> torch.Tensor:
+    """``sfc_refine`` for a traced program: the same perms, mini-batches,
+    masks and momentum rule, but each step's gradient from ``sfc_grad`` (no
+    autograd), the steps as one ``scan`` over the perms and each inner
+    Sinkhorn as a ``scan`` over its iterations, so an exported 100-step SFC
+    holds one step body, not 100 x n_batches x ``solver_iters`` copies.
+    ``emd_kw`` takes ``emd_logits``'s cosine-metric settings (temperature,
+    norm, solver_reg, solver_iters); the inner flows are the stop-gradient
+    torch-op Sinkhorn, as in ``sfc_refine``."""
+    from torch._higher_order_ops.scan import scan
+
+    kw = {**_EMD_DEFAULTS, **emd_kw}
+    if set(kw) != set(_EMD_DEFAULTS) or kw.pop("metric") != "cosine":
+        raise ValueError(f"sfc_refine_explicit takes {sorted(_EMD_DEFAULTS)} with the cosine "
+                         f"metric, got {sorted(emd_kw)} ({emd_kw.get('metric', 'cosine')})")
+    e = proto.shape[0]
+    n_support = way * shot
+    n_batches = -(-n_support // batch_size)
+    dev = proto.device
+    p0 = proto.detach().float()
+    support = support.detach().float()
+    labels = torch.arange(way, device=dev).repeat(shot)
+    if perms is None:
+        perms = sfc_perms(episode_ids, steps, n_support, seed)
+    perms = perms.to(dev)
+    eidx = torch.arange(e, device=dev)[:, None]
+
+    def step(carry, perm):  # perm (E, n_support)
+        p, buf, t = carry
+        ext = torch.cat([perm, perm[:, :batch_size]], dim=1)
+        for b in range(n_batches):
+            idx = ext[:, b * batch_size:(b + 1) * batch_size]  # (E, bs)
+            mask = ((torch.arange(batch_size, device=dev) + b * batch_size)
+                    < n_support).float()
+            g = sfc_grad(p, support[eidx, idx], labels[idx], mask, **kw)
+            buf = torch.where(t == 0, g, momentum * buf + (1.0 - dampening) * g)
+            p = p - lr * buf
+            t = t + 1
+        return (p, buf, t), t.clone()  # the per-step output may not alias the carry
+
+    init = (p0, torch.zeros_like(p0), torch.zeros((), dtype=torch.int64, device=dev))
+    (p, _, _), _ = scan(step, init, perms.transpose(0, 1))
+    return p
 
 
 # --- head module ----------------------------------------------------------------

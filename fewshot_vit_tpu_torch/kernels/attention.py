@@ -5,7 +5,10 @@
 ``csrc/mhsa.cu`` (sm_90a), which replaces the Pallas TPU kernel
 ``_mhsa_kernel``. On CPU tensors it computes ``fused_mhsa_reference``, the
 plain PyTorch version of the same function: that path exists for the CPU
-tests; on the card a kernel runs or the call raises.
+tests; on the card a kernel runs or the call raises. Both are the
+implementations of the custom op ``fewshot_vit_tpu_torch::fused_mhsa``
+(``mhsa_op``), which ``torch.export`` keeps as one node of an exported
+program, chosen by device when the program runs.
 
 The source holds two routes, and ``mhsa_route`` picks one from dtype and
 shape alone: ``tensor_core`` (bf16, T <= 128, hd <= 128: ``mma.sync`` products,
@@ -128,24 +131,19 @@ def _resolve_route(q: torch.Tensor, route: Optional[str]) -> str:
     return route
 
 
-def fused_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-               out: Optional[torch.Tensor] = None,
-               route: Optional[str] = None) -> torch.Tensor:
-    """q, k, v (B, H, T, hd) -> (B, H, T, hd) = softmax(q k^T * scale) v.
+def _token_major(q: torch.Tensor) -> torch.Tensor:
+    """An uninitialized (B, H, T, hd) tensor laid out (B, T, H, hd) in
+    memory: the layout ``attention_core`` reshapes back for free."""
+    b, h, t, hd = q.shape
+    return torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
 
-    The inputs may be strided views (e.g. heads split out of a packed qkv
-    projection) as long as the last dim is contiguous. ``out``, if given,
-    is written in place (any view of that shape with a contiguous last dim).
-    CPU tensors take the plain version; CUDA tensors launch the kernel of
-    ``route`` (default: ``mhsa_route``) and add one to ``fused_mhsa.launches``
-    and to ``fused_mhsa.route_launches[route]``.
-    """
-    if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if q.device.type == "cpu":
-        return out.copy_(fused_mhsa_reference(q, k, v, scale))
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_mhsa runs on CPU or CUDA tensors, not {q.device}")
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+            scale: float, route: Optional[str]) -> None:
+    """Launch the kernel of ``route`` (None: ``mhsa_route``) on CUDA
+    tensors, writing ``out`` (any view with a contiguous last dim) and
+    nothing else; the one place that counts launches. The op calls it on a
+    buffer of its own; the card checks call it on a NaN-filled one."""
     _check(q, k, v, out)
     b, h, t, hd = q.shape
     route = _resolve_route(q, route)
@@ -161,7 +159,51 @@ def fused_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         raise RuntimeError(f"mhsa kernel launch failed ({route} route): cudaError {err}")
     fused_mhsa.launches += 1
     fused_mhsa.route_launches[route] += 1
+
+
+# The op ``torch.ops.fewshot_vit_tpu_torch.fused_mhsa``: opaque to
+# ``torch.export``, so an exported program calls it by name and the
+# implementation is chosen by the tensors' device when the program runs.
+# ``route`` is "" for the default choice. Only CUDA and CPU tensors have an
+# implementation; the fake one gives shapes and strides to tracing.
+@torch.library.custom_op("fewshot_vit_tpu_torch::fused_mhsa", mutates_args=(),
+                         device_types="cuda")
+def mhsa_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            route: str) -> torch.Tensor:
+    out = _token_major(q)
+    _launch(q, k, v, out, scale, route or None)
     return out
+
+
+@mhsa_op.register_kernel("cpu")
+def _mhsa_op_cpu(q, k, v, scale, route):
+    return _token_major(q).copy_(fused_mhsa_reference(q, k, v, scale))
+
+
+@mhsa_op.register_fake
+def _mhsa_op_fake(q, k, v, scale, route):
+    return _token_major(q)
+
+
+def fused_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+               route: Optional[str] = None) -> torch.Tensor:
+    """q, k, v (B, H, T, hd) -> (B, H, T, hd) = softmax(q k^T * scale) v,
+    through the op ``fewshot_vit_tpu_torch::fused_mhsa``.
+
+    The inputs may be strided views (e.g. heads split out of a packed qkv
+    projection) as long as the last dim is contiguous. The result is laid
+    out (B, T, H, hd) in memory. CPU tensors take the plain version; CUDA
+    tensors launch the kernel of ``route`` (default: ``mhsa_route``, or the
+    route of ``force_route``) and add one to ``fused_mhsa.launches`` and to
+    ``fused_mhsa.route_launches[route]``, also when the op runs inside an
+    exported program.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mhsa runs on CPU or CUDA tensors, not {q.device}")
+    route = route or _forced_route
+    if route is not None:
+        _resolve_route(q, route)  # refuse a bad route before tracing records it
+    return mhsa_op(q, k, v, float(scale), route or "")
 
 
 fused_mhsa.launches = 0
@@ -179,10 +221,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     """
     b, t, h, hd = q.shape
     if use_pallas and t <= max_tokens:
-        out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
-        fused_mhsa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale,
-                   out=out.transpose(1, 2))
-        return out
+        # the op's result is token-major: transposed back, it is contiguous
+        return fused_mhsa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          scale).transpose(1, 2)
     attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     attn = torch.softmax(attn, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)

@@ -4,8 +4,9 @@
 
 Builds ``csrc/*.cu``, prints what ``ptxas -v`` says of every kernel (registers,
 spills, shared memory), holds each route of ``fused_mhsa`` and
-``sinkhorn_pallas`` against its plain version at the eval's shapes with the
-output pre-filled with NaN, and times them in turns (old, new, new, old) with
+``sinkhorn_pallas`` against its plain version at the eval's shapes (the bare
+launch with the output pre-filled with NaN, and the custom op beside it),
+and times them in turns (old, new, new, old) with
 CUDA events, ``scaled_dot_product_attention`` beside the MHSA as a yardstick.
 ``chip_smoke.py`` makes the same measurements inside its full run; this is the
 short loop for working on a kernel. Every line names the card and its power
@@ -19,7 +20,9 @@ import subprocess
 
 import torch
 
+from ..core.watchdog import watchdog_reexec
 from . import build
+from . import attention, sinkhorn
 from .attention import fused_mhsa, fused_mhsa_reference
 from .sinkhorn import sinkhorn_pallas, sinkhorn_reference
 
@@ -38,6 +41,7 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
 
 
 def main() -> int:
+    watchdog_reexec(timeout_s=900.0)  # a hung launch fails loudly instead of hanging the run
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--batch", type=int, default=10240, help="images per MHSA call")
@@ -66,21 +70,23 @@ def main() -> int:
     want = fused_mhsa_reference(q, k, v, scale).float()
     for route in ("general", "tensor_core"):
         out = torch.full((b, t, h, hd), float("nan"), dtype=torch.bfloat16, device=dev)
-        got = fused_mhsa(q, k, v, scale, out=out.transpose(1, 2), route=route)
+        attention._launch(q, k, v, out.transpose(1, 2), scale, route)
+        got = fused_mhsa(q, k, v, scale, route=route)
         torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().nan_to_num(float("inf")).item()
+        err = max((o.float() - want).abs().max().nan_to_num(float("inf")).item()
+                  for o in (out.transpose(1, 2), got))
         print(f"[{card}] fused_mhsa ({b},{h},{t},{hd}) bf16 {route}: max|d|={err:.3e}")
+        del out, got
     del want
-    out = torch.empty((b, t, h, hd), dtype=torch.bfloat16, device=dev).transpose(1, 2)
     ms = {"general": [], "tensor_core": [], "sdpa": []}
     for route in ("general", "tensor_core", "sdpa", "sdpa", "tensor_core", "general"):
         if route == "sdpa":
             fn = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
         else:
-            fn = lambda: fused_mhsa(q, k, v, scale, out=out, route=route)  # noqa: E731
+            fn = lambda: fused_mhsa(q, k, v, scale, route=route)  # noqa: E731
         ms[route].append(time_ms(fn, args.reps))
     print(f"[{card}] fused_mhsa ({b},{h},{t},{hd}) bf16 ms per call: {ms}")
-    del qkv, q, k, v, out
+    del qkv, q, k, v
 
     from ..ops.emd import normalize_weights
 
@@ -91,10 +97,11 @@ def main() -> int:
         want = sinkhorn_reference(cost, w1, w2)
         ms = {"general": [], "packed": []}
         for route in ms:
-            got = sinkhorn_pallas(cost, w1, w2, route=route,
-                                  out=torch.full_like(cost, float("nan")))
+            out = torch.full_like(cost, float("nan"))
+            sinkhorn._launch(cost, w1, w2, out, 0.05, 100, route)
+            got = sinkhorn_pallas(cost, w1, w2, route=route)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().nan_to_num(float("inf")).item()
+            err = max((o - want).abs().max().nan_to_num(float("inf")).item() for o in (out, got))
             print(f"[{card}] sinkhorn_pallas ({bsz},{n},{n}) {route}: max|d|={err:.3e}")
         for route in ("general", "packed", "packed", "general"):
             ms[route].append(

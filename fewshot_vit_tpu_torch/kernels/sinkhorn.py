@@ -7,7 +7,10 @@
 read of the cost and marginals and one write of the flow. On CPU tensors it
 computes ``sinkhorn_reference``, the plain PyTorch version of the same math:
 that path exists for the CPU tests; on the card a kernel runs or the call
-raises. The JAX name is kept so a reader finds the counterpart.
+raises. Both are the implementations of the custom op
+``fewshot_vit_tpu_torch::sinkhorn_pallas`` (``sinkhorn_op``), which
+``torch.export`` keeps as one node of an exported program. The JAX name is
+kept so a reader finds the counterpart.
 
 The source holds two routes, and ``sinkhorn_route`` picks one from the shape
 alone: ``packed`` (N1, N2 <= 32: ``log_k`` in registers, ``sinkhorn_lanes``
@@ -126,44 +129,74 @@ def _resolve_route(n1: int, n2: int, route: Optional[str]) -> str:
     return route
 
 
-def sinkhorn_pallas(cost: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                    reg: float = 0.05, iters: int = 100,
-                    out: Optional[torch.Tensor] = None,
-                    route: Optional[str] = None) -> torch.Tensor:
-    """cost (B, N1, N2), w1 (B, N1), w2 (B, N2), float32 -> detached flow
-    (B, N1, N2), the drop-in for ``ops.emd.sinkhorn(differentiable=False)``.
-
-    Inputs may require grad (the SUN-D training forward): they are detached
-    and the flow is returned outside the autograd graph, so gradients reach
-    the encoder only through the similarity map it is multiplied with.
-    ``out``, if given, is written in place. CPU tensors take the plain
-    version; CUDA tensors launch the kernel of ``route`` (default:
-    ``sinkhorn_route``) and add one to ``sinkhorn_pallas.launches`` and to
-    ``sinkhorn_pallas.route_launches[route]``.
-    """
-    # the flow is a constant of the graph, as the JAX kernel's stop_gradient
-    # makes it: inputs that require grad are read, never differentiated
-    cost, w1, w2 = cost.detach(), w1.detach(), w2.detach()
-    if cost.device.type == "cpu":
-        flow = sinkhorn_reference(cost, w1, w2, reg, iters)
-        return flow if out is None else out.copy_(flow)
-    if cost.device.type != "cuda":
-        raise ValueError(f"sinkhorn_pallas runs on CPU or CUDA tensors, not {cost.device}")
-    if out is None:
-        out = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
+def _launch(cost: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, out: torch.Tensor,
+            reg: float, iters: int, route: Optional[str]) -> None:
+    """Launch the kernel of ``route`` (None: ``sinkhorn_route``) on CUDA
+    tensors, writing ``out``; the one place that counts launches. The op
+    calls it on a buffer of its own; the card checks call it on a
+    NaN-filled one."""
     _check(cost, w1, w2, out, reg, iters)
     b, n1, n2 = cost.shape
     route = _resolve_route(n1, n2, route)
     err = _sinkhorn_forward()(
-        cost.device.index, ROUTES.index(route), cost.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-        b, n1, n2, float(reg), int(iters),
+        cost.device.index, ROUTES.index(route), cost.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        out.data_ptr(), b, n1, n2, float(reg), int(iters),
         torch.cuda.current_stream(cost.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"sinkhorn kernel launch failed ({route} route): cudaError {err}")
     sinkhorn_pallas.launches += 1
     sinkhorn_pallas.route_launches[route] += 1
+
+
+# The op ``torch.ops.fewshot_vit_tpu_torch.sinkhorn_pallas``: opaque to
+# ``torch.export``, so an exported program calls it by name and the
+# implementation is chosen by the tensors' device when the program runs.
+# ``route`` is "" for the default choice.
+@torch.library.custom_op("fewshot_vit_tpu_torch::sinkhorn_pallas", mutates_args=(),
+                         device_types="cuda")
+def sinkhorn_op(cost: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, reg: float,
+                iters: int, route: str) -> torch.Tensor:
+    out = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
+    _launch(cost, w1, w2, out, reg, iters, route or None)
     return out
+
+
+@sinkhorn_op.register_kernel("cpu")
+def _sinkhorn_op_cpu(cost, w1, w2, reg, iters, route):
+    return sinkhorn_reference(cost, w1, w2, reg, iters)
+
+
+@sinkhorn_op.register_fake
+def _sinkhorn_op_fake(cost, w1, w2, reg, iters, route):
+    return torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
+
+
+def sinkhorn_pallas(cost: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                    reg: float = 0.05, iters: int = 100,
+                    route: Optional[str] = None) -> torch.Tensor:
+    """cost (B, N1, N2), w1 (B, N1), w2 (B, N2), float32 -> detached flow
+    (B, N1, N2), the drop-in for ``ops.emd.sinkhorn(differentiable=False)``,
+    through the op ``fewshot_vit_tpu_torch::sinkhorn_pallas``.
+
+    Inputs may require grad (the SUN-D training forward): they are detached
+    and the flow is returned outside the autograd graph, so gradients reach
+    the encoder only through the similarity map it is multiplied with. CPU
+    tensors take the plain version; CUDA tensors launch the kernel of
+    ``route`` (default: ``sinkhorn_route``, or the route of ``force_route``)
+    and add one to ``sinkhorn_pallas.launches`` and to
+    ``sinkhorn_pallas.route_launches[route]``, also when the op runs inside
+    an exported program.
+    """
+    # the flow is a constant of the graph, as the JAX kernel's stop_gradient
+    # makes it: inputs that require grad are read, never differentiated
+    cost, w1, w2 = cost.detach(), w1.detach(), w2.detach()
+    if cost.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sinkhorn_pallas runs on CPU or CUDA tensors, not {cost.device}")
+    route = route or _forced_route
+    if route is not None:
+        _resolve_route(*cost.shape[1:], route)  # refuse a bad route before tracing records it
+    return sinkhorn_op(cost, w1, w2, float(reg), int(iters), route or "")
 
 
 sinkhorn_pallas.launches = 0

@@ -33,10 +33,10 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.registry import models
 from ..kernels.attention import attention_core
+from .quant import layer_factory
 from .common import (
     BatchNorm,
     BatchNorm2d,
-    Conv,
     DropPath,
     Dropout,
     Foldable,
@@ -55,9 +55,10 @@ class ConvStem(nn.Module):
     plus a conv3x3/s2 + BN shortcut, lrelu, then 2x2 maxpool."""
 
     def __init__(self, hidden: int, out: int, fold_bn: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_int8: Any = False):
         super().__init__()
-        conv = lambda cin, cout, s: Conv(cin, cout, 3, s, 1, bias=fold_bn, dtype=dtype)
+        _, conv3x3 = layer_factory(quant_int8, dtype)
+        conv = lambda cin, cout, s: conv3x3(cin, cout, 3, s, 1, bias=fold_bn)
         bn = lambda c: nn.Identity() if fold_bn else BatchNorm2d(c, dtype)
         self.conv1, self.bn1 = conv(3, hidden, 2), bn(hidden)
         self.conv2, self.bn2 = conv(hidden, out, 1), bn(out)
@@ -77,17 +78,18 @@ class Mlp(nn.Module):
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, group: int = 8,
                  spatial_conv: bool = False, first_bias: bool = False,
-                 drop: float = 0.0, dtype: torch.dtype = torch.float32):
+                 drop: float = 0.0, dtype: torch.dtype = torch.float32,
+                 quant_int8: Any = False):
         super().__init__()
         self.drop = Dropout(drop)
         if spatial_conv:
             hidden = dim * 5 // 6 if group < 2 else dim * 2
         else:
             hidden = int(dim * mlp_ratio)
-        self.conv1 = Conv(dim, hidden, bias=first_bias, dtype=dtype)
-        self.conv2 = (Conv(hidden, hidden, 3, 1, 1, groups=group, dtype=dtype)
-                      if spatial_conv else None)
-        self.conv3 = Conv(hidden, dim, dtype=dtype)
+        dense, conv = layer_factory(quant_int8, dtype)
+        self.conv1 = dense(dim, hidden, first_bias)
+        self.conv2 = conv(hidden, hidden, 3, 1, 1, group) if spatial_conv else None
+        self.conv3 = dense(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(gelu(self.conv1(x)))
@@ -102,7 +104,7 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, head_dim_ratio: float = 1.0,
                  qkv_bias: bool = False, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_pallas: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_int8: Any = False):
         super().__init__()
         self.attn_dropout = Dropout(attn_drop)
         self.proj_dropout = Dropout(proj_drop)
@@ -111,8 +113,9 @@ class Attention(nn.Module):
         self.scale = self.head_dim ** -0.5
         self.attn_drop = attn_drop
         self.use_pallas = use_pallas
-        self.qkv = Conv(dim, 3 * num_heads * self.head_dim, bias=qkv_bias, dtype=dtype)
-        self.proj = Conv(num_heads * self.head_dim, dim, dtype=dtype)
+        dense, _ = layer_factory(quant_int8, dtype)
+        self.qkv = dense(dim, 3 * num_heads * self.head_dim, qkv_bias)
+        self.proj = dense(num_heads * self.head_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
@@ -141,7 +144,7 @@ class Block(nn.Module):
                  attn_disabled: bool = False, spatial_conv: bool = False,
                  fold_bn: bool = False, use_pallas: bool = False,
                  drop: float = 0.0, drop_path: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_int8: Any = False):
         super().__init__()
         self.fold_bn = fold_bn
         self.drop_path = DropPath(drop_path)
@@ -150,11 +153,11 @@ class Block(nn.Module):
             if not fold_bn:
                 self.norm1 = BatchNorm(dim, dtype)
             self.attn = Attention(dim, num_heads, head_dim_ratio, qkv_bias or fold_bn,
-                                  attn_drop, drop, use_pallas, dtype)
+                                  attn_drop, drop, use_pallas, dtype, quant_int8)
         if not fold_bn:
             self.norm2 = BatchNorm(dim, dtype)
         self.mlp = Mlp(dim, mlp_ratio, group, spatial_conv, first_bias=fold_bn, drop=drop,
-                       dtype=dtype)
+                       dtype=dtype, quant_int8=quant_int8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.attn is not None:
@@ -166,9 +169,9 @@ class PatchEmbed(nn.Module):
     """Strided-conv (VALID) patch embedding + optional BN."""
 
     def __init__(self, patch: int, cin: int, dim: int, use_norm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_int8: Any = False):
         super().__init__()
-        self.proj = Conv(cin, dim, patch, patch, 0, bias=True, dtype=dtype)
+        self.proj = layer_factory(quant_int8, dtype)[1](cin, dim, patch, patch, 0, bias=True)
         self.norm = BatchNorm(dim, dtype) if use_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -188,7 +191,11 @@ class Visformer(Foldable, nn.Module):
     carry over unchanged; in this package it selects the CUDA fused-MHSA
     kernel (``kernels/attention.py``) for the attention blocks that the
     dispatch rule admits. ``fold_bn`` builds the architecture whose frozen
-    BNs are folded into the adjacent convs (``models/fold.py``).
+    BNs are folded into the adjacent convs (``models/fold.py``);
+    ``quant_int8`` (``True``: dynamic activation scales, ``"static"``:
+    calibrated ones; needs ``fold_bn``) makes the stem convs, the patch
+    embeds, the MLP's 1x1s and grouped 3x3, qkv and proj int8 layers
+    (``models/quant.py``), as in JAX; attention dispatch is unchanged.
     ``dtype`` is the compute dtype; parameters stay fp32. Weights are
     initialized on the CPU from ``torch.Generator().manual_seed(seed)`` and
     then moved to ``device``.
@@ -211,12 +218,18 @@ class Visformer(Foldable, nn.Module):
         drop_path_rate: float = 0.0,
         embed_norm: bool = True,
         fold_bn: bool = False,
+        quant_int8: Any = False,
         use_pallas_attn: bool = False,
         dtype: torch.dtype = torch.float32,
         device: Any = "cuda",
         seed: int = 0,
     ):
         super().__init__()
+        if quant_int8 and not fold_bn:
+            raise ValueError("quant_int8 requires fold_bn=True "
+                             "(quantize FOLDED weights, models/quant.py)")
+        if quant_int8 not in (False, True, "static"):
+            raise ValueError(f"quant_int8 is False, True or 'static', not {quant_int8!r}")
         device = resolve_device(device)
         self.config = dict(
             img_size=img_size, init_channels=init_channels, embed_dim=embed_dim,
@@ -224,7 +237,7 @@ class Visformer(Foldable, nn.Module):
             group=group, attn_stage=attn_stage, spatial_conv=spatial_conv,
             qkv_bias=qkv_bias, drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
             drop_path_rate=drop_path_rate, embed_norm=embed_norm, fold_bn=fold_bn,
-            use_pallas_attn=use_pallas_attn, dtype=dtype,
+            quant_int8=quant_int8, use_pallas_attn=use_pallas_attn, dtype=dtype,
         )
         self.out_dim = embed_dim * 2
         self.fold_bn = fold_bn
@@ -239,23 +252,23 @@ class Visformer(Foldable, nn.Module):
                 Block(dims[s_idx], num_heads, ratio, mlp_ratio, qkv_bias,
                       attn_drop_rate, group, attn_stage[s_idx] == "0",
                       spatial_conv[s_idx] == "1", fold_bn, use_pallas_attn,
-                      drop_rate, self.drop_path_rates[first + i], dtype)
+                      drop_rate, self.drop_path_rates[first + i], dtype, quant_int8)
                 for i in range(n))
 
         if init_channels is not None:
-            self.stem = ConvStem(init_channels, dims[0], fold_bn, dtype)
+            self.stem = ConvStem(init_channels, dims[0], fold_bn, dtype, quant_int8)
             size = img_size // 4
         else:
-            self.patch_embed1 = PatchEmbed(8, 3, dims[0], pe_norm, dtype)
+            self.patch_embed1 = PatchEmbed(8, 3, dims[0], pe_norm, dtype, quant_int8)
             size = img_size // 8
         self.pos_embed1 = nn.Parameter(torch.empty(1, dims[0], size, size))
         self.stage1 = stage(d1, 0, 0.5, 0)
         size //= 2
-        self.patch_embed2 = PatchEmbed(2, dims[0], dims[1], pe_norm, dtype)
+        self.patch_embed2 = PatchEmbed(2, dims[0], dims[1], pe_norm, dtype, quant_int8)
         self.pos_embed2 = nn.Parameter(torch.empty(1, dims[1], size, size))
         self.stage2 = stage(d2, 1, 1.0, d1)
         size //= 2
-        self.patch_embed3 = PatchEmbed(2, dims[1], dims[2], pe_norm, dtype)
+        self.patch_embed3 = PatchEmbed(2, dims[1], dims[2], pe_norm, dtype, quant_int8)
         self.pos_embed3 = nn.Parameter(torch.empty(1, dims[2], size, size))
         self.stage3 = stage(d3, 2, 1.0, d1 + d2)
         self.norm = BatchNorm(dims[2], dtype)

@@ -34,7 +34,7 @@ from ..core import rng as rng_mod
 from ..core.rng import DEFAULT_SEED, torch_generator
 from ..data.patches import draw_grid_ratios, grid_patches, sampling_patches
 from ..data.transforms import normalize
-from ..heads.deepemd import sfc_refine
+from ..heads.deepemd import sfc_refine, sfc_refine_explicit
 from ..models.common import draws_from, frozen_bn
 from ..ops.metric import compute_acc
 from .loop import metrics_mean, stack_metrics
@@ -73,24 +73,27 @@ def make_patch_fn(mode: str, patch_list, patch_ratio: float, out_size: int,
 
 def episode_logits(head, nodes: torch.Tensor, way: int, shot: int, sfc: bool,
                    sfc_kw: dict, episode_ids: Sequence[int], seed: int,
-                   perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   perms: Optional[torch.Tensor] = None,
+                   explicit_sfc: bool = False) -> torch.Tensor:
     """nodes (E, way*(shot+query), N, C) in the interleaved layout -> logits
     (E, way*query, way): shot-mean prototypes, SFC-refined for shot > 1 (the
-    refined prototype is outside the autograd graph), then EMD matching.
-    Shared by training, the direct and the cached eval."""
+    refined prototype is outside the autograd graph; ``explicit_sfc`` takes
+    ``sfc_refine_explicit``, the traceable form), then EMD matching.
+    Shared by training, the direct and the cached eval, and the export."""
     k = way * shot
     e = nodes.shape[0]
     proto = nodes[:, :k].reshape(e, shot, way, *nodes.shape[2:]).mean(dim=1)
     if sfc and shot > 1:
-        proto = sfc_refine(proto, nodes[:, :k], way, shot, episode_ids=episode_ids,
-                           seed=seed, perms=perms, **sfc_kw)
+        refine = sfc_refine_explicit if explicit_sfc else sfc_refine
+        proto = refine(proto, nodes[:, :k], way, shot, episode_ids=episode_ids,
+                       seed=seed, perms=perms, **sfc_kw)
     return head.meta(proto, nodes[:, k:])
 
 
 def make_emd_episode_fn(head, way: int, shot: int, query: int, patch_fn: Callable,
                         mean, std, sfc: bool, sfc_kw: Optional[dict] = None,
                         train: bool = False, remat: bool = False,
-                        seed: int = DEFAULT_SEED) -> Callable:
+                        seed: int = DEFAULT_SEED, explicit_sfc: bool = False) -> Callable:
     """``fn(images uint8 (E, way*(shot+query), H, W, 3), episode_ids (E,),
     key=None, perms=None, **draws)`` -> logits (E, way*query, way),
     re-encoding every image of the episodes.
@@ -107,7 +110,10 @@ def make_emd_episode_fn(head, way: int, shot: int, query: int, patch_fn: Callabl
     (per-episode batch statistics would diverge episode by episode). The
     caller holds grad mode. ``remat=True`` wraps the encoder in
     ``torch.utils.checkpoint``: the backward pass recomputes its activations
-    (the mask generator is re-seeded inside, so both passes draw the same)."""
+    (the mask generator is re-seeded inside, so both passes draw the same).
+    ``explicit_sfc=True`` refines with ``sfc_refine_explicit`` (closed-form
+    gradients, ``scan`` loops): the form ``torch.export`` traces, with the
+    perms passed as ``perms=`` (``eval/export.py`` bakes them from ``seed``)."""
     sfc_kw = dict(sfc_kw or {})
 
     def fn(images_u8: torch.Tensor, episode_ids: Sequence[int],
@@ -134,7 +140,7 @@ def make_emd_episode_fn(head, way: int, shot: int, query: int, patch_fn: Callabl
             else:
                 nodes = encode(x)
         return episode_logits(head, nodes.reshape(e, n, *nodes.shape[1:]), way, shot,
-                              sfc, sfc_kw, episode_ids, seed, perms)
+                              sfc, sfc_kw, episode_ids, seed, perms, explicit_sfc)
 
     return fn
 
@@ -185,8 +191,9 @@ def make_emd_epoch_fn(episode_fn: Callable, labels: torch.Tensor, ep_per_batch: 
     JAX package."""
     if mesh is not None:
         validate_episode_mesh(dict(mesh), grad_accum, ep_per_batch)
-        raise NotImplementedError("mesh episode parallelism comes with the auxiliaries slice "
-                                  "(ROADMAP.md, item f of the order list)")
+        from .runner import AUXILIARIES
+
+        raise NotImplementedError(f"mesh episode parallelism {AUXILIARIES}")
 
     def epoch(state: TrainState, images: torch.Tensor, idx: torch.Tensor,
               key: Sequence[int]) -> Dict[str, torch.Tensor]:

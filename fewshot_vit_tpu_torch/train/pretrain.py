@@ -43,6 +43,7 @@ from .runner import (
     fs_eval,
     model_dtype,
     parse_args,
+    profile_epoch,
     save_dir_for,
     visualize_augmented,
     visualize_datasets,
@@ -158,7 +159,8 @@ def main(cfg, args) -> TrainState:
     for epoch in range(start_epoch, epochs + 1):
         t0 = time.time()
         state.optimizer.set_epoch(epoch - 1)
-        m = run_epoch(epoch_fn, epoch)
+        with profile_epoch(args, epoch):
+            m = run_epoch(epoch_fn, epoch)
         line = f"epoch {epoch} train loss={m['loss']:.4f} acc={m['acc']:.4f}"
 
         va = None

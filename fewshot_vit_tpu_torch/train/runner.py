@@ -32,7 +32,8 @@ from .optim import (
     timm_multistep_schedule,
 )
 
-AUXILIARIES = "comes with the auxiliaries slice (ROADMAP.md, item f of the order list)"
+AUXILIARIES = ("comes with the mesh, the last part of the auxiliaries slice "
+               "(ROADMAP.md, item f.4 of the order list)")
 
 
 def parse_args(description: str, argv=None) -> Tuple[Config, argparse.Namespace]:
@@ -44,8 +45,35 @@ def parse_args(description: str, argv=None) -> Tuple[Config, argparse.Namespace]
     p.add_argument("--save-root", default="./save")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of epoch 2 here")
     args = p.parse_args(argv)
     return load_config(args.config), args
+
+
+def profile_epoch(args: argparse.Namespace, epoch: int):
+    """Context manager: a ``torch.profiler`` trace (CPU and, with a card,
+    CUDA activity) around epoch 2 when ``--profile-dir`` is set, written as a
+    Chrome trace into that directory on exit; otherwise a ``nullcontext``."""
+    import contextlib
+
+    profile_dir = getattr(args, "profile_dir", None)
+    if not (profile_dir and epoch == 2):
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+
+    @contextlib.contextmanager
+    def traced():
+        with profile(activities=activities) as prof:
+            yield prof
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.trace.json"))
+
+    return traced()
 
 
 def check_single_device(cfg: Config) -> None:

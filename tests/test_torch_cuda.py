@@ -39,22 +39,26 @@ def test_kernel_matches_plain(cuda_device, dtype, tol, shape):  # noqa: F811
     route = "tensor_core" if dtype == torch.bfloat16 and shape[2] <= 128 else "general"
     assert tk.mhsa_route(q) == route
     before, before_route = tk.fused_mhsa.launches, tk.fused_mhsa.route_launches[route]
-    got = tk.fused_mhsa(q, k, v, scale, out=torch.full_like(q, float("nan")))
+    # the bare launch into a NaN-filled output: an element it does not write fails
+    bare = torch.full_like(q, float("nan"))
+    tk._launch(q, k, v, bare, scale, None)
+    got = tk.fused_mhsa(q, k, v, scale)  # the op
     torch.cuda.synchronize()
-    assert tk.fused_mhsa.launches == before + 1
-    assert tk.fused_mhsa.route_launches[route] == before_route + 1
+    assert tk.fused_mhsa.launches == before + 2
+    assert tk.fused_mhsa.route_launches[route] == before_route + 2
     want = tk.fused_mhsa_reference(q, k, v, scale)
-    assert got.dtype == dtype
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    for out in (bare, got):
+        assert out.dtype == dtype
+        assert (out.float() - want.float()).abs().max().nan_to_num(float("inf")).item() <= tol
 
 
 @pytest.mark.parametrize("shape", [(64, 100, 6, 42), (16, 25, 6, 85), (3, 1, 1, 1),
                                    (2, 33, 3, 97), (8, 64, 4, 48), (4, 128, 2, 128)])
 def test_tensor_core_route_on_packed_views(cuda_device, shape):  # noqa: F811
-    """bf16 heads split out of a packed qkv tensor, output through a
-    (B, T, H, hd) view pre-filled with NaN; the general route, forced, agrees
-    on the same views. 2e-2: one bf16 ulp of outputs up to ~3, plus the
-    probabilities' bf16 rounding."""
+    """bf16 heads split out of a packed qkv tensor, the bare launch of each
+    route writing a (B, T, H, hd) view pre-filled with NaN, and the op on
+    the same views with the route forced. 2e-2: one bf16 ulp of outputs up
+    to ~3, plus the probabilities' bf16 rounding."""
     b, t, h, hd = shape
     rng = np.random.default_rng(t + hd)
     qkv = torch.from_numpy(rng.normal(size=(b, t, 3, h, hd)).astype(np.float32)).to(
@@ -64,27 +68,32 @@ def test_tensor_core_route_on_packed_views(cuda_device, shape):  # noqa: F811
     for route in ("tensor_core", "general"):
         out = torch.full((b, t, h, hd), float("nan"), dtype=torch.bfloat16, device=cuda_device)
         before = dict(tk.fused_mhsa.route_launches)
+        tk._launch(q, k, v, out.transpose(1, 2), hd ** -0.5, route)
         with tk.force_route(route if route == "general" else None):
-            got = tk.fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2))
+            got = tk.fused_mhsa(q, k, v, hd ** -0.5)
         torch.cuda.synchronize()
         after = tk.fused_mhsa.route_launches
-        assert after[route] == before[route] + 1 and sum(after.values()) == sum(before.values()) + 1
-        assert (got.float() - want).abs().max().item() <= 2e-2
+        assert after[route] == before[route] + 2 and sum(after.values()) == sum(before.values()) + 2
+        for o in (out.transpose(1, 2), got):
+            assert (o.float() - want).abs().max().nan_to_num(float("inf")).item() <= 2e-2
 
 
 def test_kernel_leaves_neighbouring_heads_alone(cuda_device):  # noqa: F811
-    """Only heads 0, 2, 4 are computed, through views; the columns of heads
-    1, 3, 5 lie between theirs in every output row and must stay NaN."""
+    """Only heads 0, 2, 4 are computed, through views, by the bare launch;
+    the columns of heads 1, 3, 5 lie between theirs in every output row and
+    must stay NaN. The op on the same views agrees."""
     b, t, h, hd = 64, 100, 6, 42
     qkv = torch.randn(b, t, 3, h, hd, device=cuda_device).to(torch.bfloat16)
     q, k, v = (x.transpose(1, 2)[:, ::2] for x in qkv.unbind(2))
     out = torch.full((b, t, h, hd), float("nan"), dtype=torch.bfloat16, device=cuda_device)
     before = tk.fused_mhsa.route_launches["tensor_core"]
-    got = tk.fused_mhsa(q, k, v, hd ** -0.5, out=out.transpose(1, 2)[:, ::2])
+    tk._launch(q, k, v, out.transpose(1, 2)[:, ::2], hd ** -0.5, None)
+    got = tk.fused_mhsa(q, k, v, hd ** -0.5)
     torch.cuda.synchronize()
-    assert tk.fused_mhsa.route_launches["tensor_core"] == before + 1
-    want = tk.fused_mhsa_reference(q, k, v, hd ** -0.5)
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert tk.fused_mhsa.route_launches["tensor_core"] == before + 2
+    want = tk.fused_mhsa_reference(q, k, v, hd ** -0.5).float()
+    for o in (out.transpose(1, 2)[:, ::2], got):
+        assert (o.float() - want).abs().max().nan_to_num(float("inf")).item() <= 2e-2
     assert out[:, :, 1::2].isnan().all()
     assert not out[:, :, ::2].isnan().any()
 
@@ -183,14 +192,17 @@ def test_sinkhorn_kernel_matches_plain(cuda_device, shape, iters, forced):  # no
     route = forced or ("packed" if max(shape[1:]) <= 32 else "general")
     assert forced or tks.sinkhorn_route(*shape[1:]) == route
     before, before_route = tks.sinkhorn_pallas.launches, tks.sinkhorn_pallas.route_launches[route]
-    got = tks.sinkhorn_pallas(cost, w1, w2, iters=iters, route=forced,
-                              out=torch.full_like(cost, float("nan")))
+    # the bare launch into a NaN-filled output: an element it does not write fails
+    bare = torch.full_like(cost, float("nan"))
+    tks._launch(cost, w1, w2, bare, 0.05, iters, forced)
+    got = tks.sinkhorn_pallas(cost, w1, w2, iters=iters, route=forced)  # the op
     torch.cuda.synchronize()
-    assert tks.sinkhorn_pallas.launches == before + 1
-    assert tks.sinkhorn_pallas.route_launches[route] == before_route + 1
+    assert tks.sinkhorn_pallas.launches == before + 2
+    assert tks.sinkhorn_pallas.route_launches[route] == before_route + 2
     want = tks.sinkhorn_reference(cost, w1, w2, iters=iters)
     assert not got.requires_grad
-    assert (got - want).abs().max().item() <= 1e-4
+    for out in (bare, got):
+        assert (out - want).abs().max().nan_to_num(float("inf")).item() <= 1e-4
 
 
 def test_sinkhorn_kernel_rejects_what_it_cannot_take(cuda_device):  # noqa: F811
@@ -385,3 +397,68 @@ def test_capture_on_the_card_leaves_the_mhsa_launches(cuda_device):  # noqa: F81
     assert maps.shape == (4, 5, 5) and 0.0 <= maps.min() and maps.max() <= 1.0
     for a, b in zip(plain, cap):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 27, 64), (640 * 100, 256, 756), (3000, 2048, 512)])
+def test_int8_matmul_equals_float64_on_the_card(cuda_device, m, k, n):  # noqa: F811
+    """``torch._int_mm`` with the port's padding (M to 17, K and N to
+    multiples of 8) gives the exact int32 product."""
+    from fewshot_vit_tpu_torch.models.quant import int8_matmul
+
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda_device).to(torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda_device).to(torch.int8)
+    y = int8_matmul(a, w)
+    assert y.dtype == torch.int32 and y.shape == (m, n)
+    assert torch.equal(y.double(), a.double() @ w.double().T)
+
+
+@pytest.mark.parametrize("k,stride,pad,groups,cin,cout", [(3, 2, 1, 1, 3, 64), (3, 1, 1, 8, 256, 256),
+                                                        (2, 2, 0, 1, 128, 256)])
+def test_int8_conv_equals_float64_on_the_card(cuda_device, k, stride, pad, groups, cin, cout):  # noqa: F811
+    import torch.nn.functional as F
+
+    from fewshot_vit_tpu_torch.models import quant
+
+    g = torch.Generator(device=cuda_device).manual_seed(cin)
+    q = torch.randint(-127, 128, (8, 20, 20, cin), generator=g, device=cuda_device).to(torch.int8)
+    w = torch.randint(-127, 128, (cout, cin // groups, k, k), generator=g,
+                      device=cuda_device).to(torch.int8)
+    y = torch.cat(list(quant.conv_int32_chunks(q, w, stride, pad, groups)))
+    want = F.conv2d(q.permute(0, 3, 1, 2).double(), w.double(), None, stride, pad, 1, groups)
+    assert torch.equal(y.double(), want.permute(0, 2, 3, 1))
+
+
+def test_custom_ops_on_the_card(cuda_device):  # noqa: F811
+    q, k, v = _qkv((4, 6, 100, 42), 9, cuda_device, torch.bfloat16)
+    torch.library.opcheck(tk.mhsa_op, (q, k, v, 42 ** -0.5, ""))
+    cost = 2.0 * torch.rand(50, 13, 13, device=cuda_device)
+    w1 = normalize_weights(torch.rand(50, 13, device=cuda_device))
+    w2 = normalize_weights(torch.rand(50, 13, device=cuda_device))
+    torch.library.opcheck(tks.sinkhorn_op, (cost, w1, w2, 0.05, 100, ""))
+
+
+def test_exported_encoder_on_the_card_launches_the_kernel(cuda_device, tmp_path):  # noqa: F811
+    """An encoder artifact traced on the card, and one traced on the CPU and
+    moved there, launch the fused-MHSA kernel inside the call (one stage-2
+    block: one launch) and equal the live forward."""
+    from fewshot_vit_tpu_torch.data.transforms import normalize
+    from fewshot_vit_tpu_torch.eval import export
+
+    enc = Visformer(**SMALL_VISFORMER, use_pallas_attn=True, device=cuda_device)
+    imgs = torch.randint(0, 256, (4, 80, 80, 3), dtype=torch.uint8, device=cuda_device)
+    with torch.no_grad():
+        live = enc(normalize(imgs))[1]
+    for platforms in (("cuda",), ("cpu", "cuda")):
+        path = str(tmp_path / f"{len(platforms)}.pt2")
+        export.save_exported(export.export_encoder(enc, image_size=80, batch=4,
+                                                   platforms=platforms), path)
+        prog = export.load_exported(path, device="cuda").module()
+        before = tk.fused_mhsa.launches
+        with torch.no_grad():
+            got = prog(imgs)
+        torch.cuda.synchronize()
+        assert tk.fused_mhsa.launches == before + 1
+        torch.testing.assert_close(got, live, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="not for cpu"):
+        export.load_exported(str(tmp_path / "1.pt2"), device="cpu")

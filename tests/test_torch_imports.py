@@ -48,7 +48,9 @@ def test_scan_covers_the_port():
             "nest.py", "swin.py", "levit.py", "lvvit.py", "deit.py", "resnet.py",
             "resnet12.py", "convnet4.py", "fold.py",
             # solver: exact, the research heads, the visualization paths
-            "emd.py", "meta_token.py", "visualize.py"} <= names
+            "emd.py", "meta_token.py", "visualize.py",
+            # int8, the export, the watchdog
+            "quant.py", "export.py", "watchdog.py"} <= names
     assert (ROOT / "fewshot_vit_tpu_torch" / "native" / "emd_solver.cpp").is_file()
     assert (ROOT / "fewshot_vit_tpu_torch" / "utils" / "__init__.py") in _port_files()
     assert len([p for p in _port_files() if p.name == "token_label.py"]) == 2  # ops and heads
@@ -116,8 +118,9 @@ def _checkpoints(tmp_path, model, **kw):
 
 def test_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys):
     """Seeded (with a warning), then ``load:`` a directory and the same
-    weights as a ``.pth``: equal accuracies. A checkpoint of another width,
-    and the unported ``--int8``, are refused."""
+    weights as a ``.pth``: equal accuracies, with ``--int8`` too. A
+    checkpoint of another width is refused, with ``--int8`` too (the weights
+    load before they are quantized)."""
     cfg = tmp_path / "c.yaml"
     text = ("dataset: synthetic\n"
             "dataset_args: {n_classes: 5, n_per_class: 16, image_size: 80}\n"
@@ -136,10 +139,12 @@ def test_cli_runs_on_cpu_and_refuses_checkpoints(tmp_path, capsys):
                                "--device", "cpu"])
         assert "WARNING" not in capsys.readouterr().out
     np.testing.assert_array_equal(accs["max-va"], accs["max_acc.pth"])
+    int8 = run.main(["--config", str(cfg), "--episodes", "8", "--int8", "--device", "cpu"])
+    assert int8.shape == (8,) and ((int8 >= 0) & (int8 <= 1)).all()
     cfg.write_text(text.replace("embed_dim: 96", "embed_dim: 48") + f"load: {tmp_path / 'max_acc.pth'}\n")
     with pytest.raises(ValueError, match="shape mismatch"):
         run.main(["--config", str(cfg), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="shape mismatch"):
         run.main(["--config", str(cfg), "--int8", "--device", "cpu"])
 
 
@@ -211,23 +216,30 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             models.make(name, encoder="visformer_micro_80")
     assert not (tmp_path / "v").exists()
+    from fewshot_vit_tpu_torch.eval import export
+
+    for flags in ([], ["--platforms", "cuda"]):  # a card artifact is traced on the card
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            export.main(["--config", str(cfg), "--out", str(tmp_path / "a.pt2")] + flags)
+    assert not (tmp_path / "a.pt2").exists()
 
 
 def test_the_rest_of_the_auxiliaries_refuse_by_name(tmp_path):
-    """``mesh:``, ``distributed:``, ``--int8``, ``--mesh-data`` and
-    ``eval.export`` wait for item f and say so; ``visualize_datasets:`` no
-    longer refuses."""
+    """``mesh:``, ``distributed:``, ``--mesh-data`` and ``eval.export
+    --data-shards`` wait for the mesh (item f.4) and say so;
+    ``visualize_datasets:``, ``--int8`` and ``eval.export`` no longer
+    refuse."""
     from fewshot_vit_tpu_torch.core.config import Config
     from fewshot_vit_tpu_torch.eval import export
 
     for key in ("mesh", "distributed"):
-        with pytest.raises(NotImplementedError, match="item f of the order list"):
+        with pytest.raises(NotImplementedError, match=r"item f\.4 of the order list"):
             runner.check_single_device(Config({key: {"data": 4}}))
     runner.check_single_device(Config({"visualize_datasets": True}))
     cfg = tmp_path / "c.yaml"
     cfg.write_text("dataset: synthetic\n")
-    for flag in (["--int8"], ["--mesh-data", "2"]):
-        with pytest.raises(NotImplementedError, match="item f of the order list"):
-            run.main(["--config", str(cfg), "--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="item f of the order list"):
-        export.main([])
+    with pytest.raises(NotImplementedError, match=r"item f\.4 of the order list"):
+        run.main(["--config", str(cfg), "--device", "cpu", "--mesh-data", "2"])
+    with pytest.raises(NotImplementedError, match=r"'--data-shards'.*item f\.4 of the order list"):
+        export.main(["--config", str(cfg), "--out", str(tmp_path / "a.pt2"), "--data-shards", "2"])
+    assert not (tmp_path / "a.pt2").exists()
