@@ -143,7 +143,7 @@ Phases, in order; any failure exits non-zero:
      with ``--platforms cpu,cuda``), the encoder (batch 128), and the EMD
      scorer at ``sund_mini_visformer_1shot.yaml``'s geometry with ``solver:
      sinkhorn_pallas``, 1-shot and 5-shot with SFC at the 5-shot config's
-     ``sfc_*``: export seconds, ``.pt2`` MB, graph nodes; no kernel launched
+     ``sfc_*`` (20 of its 100 steps): export seconds, ``.pt2`` MB, graph nodes; no kernel launched
      while tracing;
  26. every artifact loaded and called in ONE fresh process that imports
      only torch and ``fewshot_vit_tpu_torch.kernels`` (for the two ops), on
@@ -158,10 +158,35 @@ Phases, in order; any failure exits non-zero:
      shapes: events around 20 calls, the device work alone (calls queued
      behind a sleeping kernel) for the op and the bare launch, and the
      host's dispatch time a call;
- 29. print the ``training``, ``eval_clis``, ``slice8``, ``slice9`` and
-     kernels' JSON lines, then the result line.
+ 29. (after phase 28, from the phase-14 ``.pth``) the mesh, one rank a
+     process, launched from here with ``python -m torch.distributed.run``:
+     this process exports the fp32 scorer with ``--data-shards 2`` and
+     starts one NCCL rank (``mesh: {data: 1}``: an all-reduce, then a SUN
+     step); while it runs, this process makes the one-rank twin of each
+     mesh path (``eval.run --fold-bn --bf16`` and ``eval.run_emd`` 1-shot
+     grid bf16 over the same episodes, the SUN-D and SUN steps), then times
+     ``evaluate`` alone on the card;
+ 30. two gloo ranks on cuda:0 (two ranks cannot share a card over NCCL):
+     which collectives gloo takes with CUDA tensors; ``eval.run --mesh-data
+     2`` (256 episodes) and ``eval.run_emd --mesh-data 2`` (64 episodes),
+     every rank returning the whole result, held to the one-rank run by the
+     accuracy rule; ``evaluate(mesh=)``'s episodes/s; one ``meta_tune_emd``
+     step (``bs`` 2, one episode a rank, fp32); the 2-shard scorer served by
+     both ranks against phase 26's unsharded artifact (fp32, 1e-4); one SUN
+     step of 512 images (256 a rank, global BN statistics, the dual view
+     and drop-path drawn for the whole batch, fp32 teacher, SGD) with host
+     clocks around its collectives. Launches counted in each rank: fused
+     MHSA 2 per encoder forward a rank (the same batches as one rank, half
+     the episodes), Sinkhorn 1 per EMD batch and 1 per training episode a
+     rank;
+ 31. the trainer steps of both groups held to the one-rank ones by the
+     trainer rules (loss 1e-4, parameters 2e-5, BN statistics 1e-5; the
+     stem within 2e-5 or 1e-2 of its update's max-abs, the stem rule);
+ 32. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
+     ``slice10`` and kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
+(the ranks of phases 30-31 run this file with ``--mesh-rank DIR``).
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
 SUN-D grid episode batch, of one training step of each trainer, and of one
 pretrain step of the slowest zoo family.)
@@ -185,8 +210,8 @@ SUND_EP_PER_BATCH = 8       # SUN-D: 8 * 80 images * 13 patches = 8,320 encoder 
 SUND_EPISODES = 64          # SUN-D grid run: 8 episode batches
 SUND_FCN_EPISODES = 32
 SUND_TIMED = 32
-# the SUN-D eval CLI's lr and batch at 20 of its 100 steps: the export phase
-# runs the 5-shot config's full 100 steps in process and in its artifact
+# the SUN-D eval CLI's lr and batch at 20 of its 100 steps; the export phase
+# runs the 5-shot config's lr and batch at 20 steps too (SFC5_KW)
 SFC_KW = {"steps": 20, "lr": 100.0, "batch_size": 4}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
@@ -2372,9 +2397,10 @@ def _visualize_pretrain_cli(tmp, tag):
 INT8_EPISODES = 400         # each --int8 / --fold-bn eval CLI, 1-shot, 8 episodes a batch
 EXPORT_EPB = 8              # episodes per episode-scorer artifact call
 EXPORT_BATCHES = 4          # episode batches scored through each scorer artifact
-EXPORT_EMD_EPB = {1: 8, 5: 1}  # episodes per EMD artifact call (5-shot: 100 SFC steps a call)
+EXPORT_EMD_EPB = {1: 8, 5: 1}  # episodes per EMD artifact call (5-shot: 20 SFC steps a call)
 EXPORT_ENCODER_BATCH = 128
-SFC5_KW = {"sfc_lr": 0.1, "sfc_update_step": 100, "sfc_bs": 4}  # sund_mini_visformer_5shot.yaml
+# sund_mini_visformer_5shot.yaml's sfc_*, 20 of its 100 steps (as phase 6 runs them)
+SFC5_KW = {"sfc_lr": 0.1, "sfc_update_step": 20, "sfc_bs": 4}
 PR8_MS = {"fused_mhsa (10240*6,100,42) bfloat16": 1.3517, "fused_mhsa (512*6,100,42) bfloat16": 0.0835,
           "fused_mhsa (512*6,100,42) float32": 0.6923, "sinkhorn_pallas (3000,13,13)": 0.0611}
 
@@ -2699,7 +2725,7 @@ def _export_artifacts(dev, tmp, pth, tag):
                   [(enc_in,)] if name.startswith("encoder") else [(emd_in[int(name[4])],)])
         in_path = os.path.join(tmp, f"{name}_in.pt")
         torch.save([[t.cpu() for t in batch] for batch in inputs], in_path)
-        # every call but the 5-shot one's (100 SFC steps) follows a warm call
+        # every call but the 5-shot one's (SFC's steps) follows a warm call
         spec.append({"name": name, "path": out, "inputs": in_path, "warm": name != "emd_5shot",
                      "move": name.endswith("cpu_cuda"),
                      "out": os.path.join(tmp, f"{name}_out.pt")})
@@ -2847,10 +2873,515 @@ def _profile_dir_phase(tmp, tag):
                                      "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}}
 
 
+# --- slice 10: the mesh, ranks launched from here -----------------------------------------
+MESH_EPISODES = 256         # eval.run --mesh-data 2, 8 a batch: 4 episodes a rank a batch
+MESH_EMD_EPISODES = 64      # eval.run_emd --mesh-data 2, 1-shot grid, 8 a batch
+MESH_SUND_DATA = {"n_classes": 20, "n_per_class": 40, "image_size": 80, "seed": 3}
+MESH_SUN_DATA = {"n_classes": 64, "n_per_class": 8, "image_size": 84, "seed": 5}  # one batch
+MESH_SUN_OPT = {"optimizer": "sgd", "optimizer_args": {"lr": 0.05}}
+MESH_TIMEOUT_S = 300
+
+
+def _mesh_eval_cfg(pth):
+    return {"dataset": "synthetic",
+            "dataset_args": {"n_classes": 20, "n_per_class": 600, "image_size": 80, "seed": 0},
+            "encoder": ENCODER, "model_args": {"encoder_args": {"use_pallas_attn": True}},
+            "load": pth}
+
+
+def _counted(fn):
+    """(fn(), seconds, the launches it made by kernel and route)."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {
+        "fused_mhsa": dict(fused_mhsa.route_launches),
+        "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
+
+
+def _mesh_eval_timing(dev, pth, mesh):
+    """Episodes/s of ``evaluate`` (``--fold-bn --bf16``, as the CLI builds
+    the head) over ``MESH_EPISODES``, after a warm batch."""
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets
+    from fewshot_vit_tpu_torch.data.staging import upload_images
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval.episodic import evaluate
+    from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
+
+    cfg = _mesh_eval_cfg(pth)
+    ds = datasets.make("synthetic", **cfg["dataset_args"])
+    images = upload_images(ds.images, dev)
+    head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev))
+    kw = dict(ep_per_batch=CLI_EP_PER_BATCH, images_dev=images, device=dev, mesh=mesh)
+    evaluate(head, ds, n_episodes=CLI_EP_PER_BATCH, seed=3, **kw)
+    _, secs, _ = _counted(lambda: evaluate(head, ds, n_episodes=MESH_EPISODES, seed=4, **kw))
+    return MESH_EPISODES / secs
+
+
+def _mesh_sund_step(dev, mesh):
+    """One ``meta_tune_emd`` step at ``SUND_TRAIN``'s geometry (fp32, ``bs``
+    2, ``sinkhorn_pallas``) from seeded weights: (state dict before, after,
+    loss, seconds, launches)."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets, models
+    from fewshot_vit_tpu_torch.data.sampler import EpisodeSampler
+    from fewshot_vit_tpu_torch.train import meta_tune_emd as tt
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    c = SUND_TRAIN
+    way, shot, query, bs = c["way"], c["shot"], c["query"], c["bs"]
+    ds = datasets.make("synthetic", **MESH_SUND_DATA)
+    head = models.make("deepemd", encoder=ENCODER, encoder_args={"use_pallas_attn": True},
+                       temperature=c["temperature"], solver_iters=c["solver_iters"],
+                       solver=c["solver"], device=dev, seed=0)
+    fn = tt.make_emd_episode_fn(head, way, shot, query,
+                                tt.make_patch_fn(c["deepemd"], c["patch_list"], c["patch_ratio"],
+                                                 c["image_size"], train=True),
+                                ds.mean, ds.std, sfc=False, train=True)
+    state = TrainState(head, tt.build_sund_optimizer(Config(c), head.parameters()))
+    start = _state_copy(head)
+    epoch = tt.make_emd_epoch_fn(fn, torch.arange(way, device=dev).repeat(query), bs, mesh=mesh)
+    sampler = EpisodeSampler(ds.labels, 1, way, shot + query, bs)
+    idx = tt.interleaved(sampler.batch(rng_mod.np_rng(0, 1)), bs, way, shot + query)
+    idx = torch.from_numpy(idx[None].astype(np.int64)).to(dev)
+    images = torch.from_numpy(ds.images).to(dev)
+    m, secs, counts = _counted(lambda: epoch(state, images, idx, (0, 1)))
+    return start, state.variables, float(m["loss"][0]), secs, counts
+
+
+def _mesh_sun_step(dev, mesh):
+    """One SUN step (``train.loop.make_sun_epoch``) of batch 512, the dual
+    view, drop-path 0.5, an fp32 teacher, SGD, seeded weights: (state dict
+    before, after, loss, seconds, launches, ``again``). ``again(clocked)``
+    runs one more step of the same batch and returns (seconds, collective
+    seconds, collectives): a warm step, with host clocks around each
+    collective (synchronized) when ``clocked``."""
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets, models
+    from fewshot_vit_tpu_torch.data.augment import make_dual_view_fn
+    from fewshot_vit_tpu_torch.heads import token_label as _token_label  # noqa: F401
+    from fewshot_vit_tpu_torch.parallel import mesh as pmesh
+    from fewshot_vit_tpu_torch.train.loop import make_sun_epoch
+    from fewshot_vit_tpu_torch.train.runner import build_optimizer
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    mini = datasets.make("synthetic", **MESH_SUN_DATA)
+
+    def token_label(seed):
+        return models.make("token-label", encoder=ENCODER,
+                           encoder_args={"drop_path_rate": 0.5, "use_pallas_attn": True},
+                           classifier_args={"n_classes": mini.n_classes}, device=dev, seed=seed)
+
+    student, teacher = token_label(0), token_label(1).requires_grad_(False).eval()
+    state = TrainState(student, build_optimizer(Config(MESH_SUN_OPT), student.parameters()))
+    start = _state_copy(student)
+    epoch = make_sun_epoch(make_dual_view_fn(mini.mean, mini.std, out_size=80), mini.mean,
+                           mini.std, **SUN_KW)
+    images = torch.from_numpy(mini.images).to(dev)
+    labels = torch.from_numpy(mini.labels.astype("int64")).to(dev)
+    idx = _steps_idx(len(mini), 1, 1, dev)
+    plain = (pmesh.reduce_sum_, pmesh._gather_flat)
+    spent = [0.0, 0]
+
+    def clocked(fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+        return timed
+
+    def step(clock):
+        spent[:] = [0.0, 0]
+        if clock:
+            pmesh.reduce_sum_, pmesh._gather_flat = map(clocked, plain)
+        try:
+            with pmesh.use_mesh(mesh):
+                return _counted(lambda: epoch(state, teacher, images, labels, idx, (0, 1)))
+        finally:
+            pmesh.reduce_sum_, pmesh._gather_flat = plain
+
+    m, secs, counts = step(False)
+    after = {k: v.detach().clone() for k, v in state.variables.items()}
+
+    def again(clock):
+        _, secs, _ = step(clock)
+        return secs, spent[0], spent[1]
+
+    return start, after, float(m["loss"][0]), secs, counts, again
+
+
+def _gloo_cuda_probe(dev):
+    """Which collectives gloo takes with tensors on the card."""
+    import torch
+    import torch.distributed as dist
+
+    world, out = dist.get_world_size(), {}
+    x = torch.ones(4, device=dev)
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+            ("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)],
+                                                   x)),
+            ("all_gather_into_tensor",
+             lambda: dist.all_gather_into_tensor(torch.empty(world * 4, device=dev), x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:  # the probe records what the backend refuses
+            out[name] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return out
+
+
+def _mesh_rank(job_dir) -> int:
+    """One rank of a slice-10 group (``python -m torch.distributed.run ...
+    chip_smoke.py --mesh-rank DIR``): the spec's phases through the entry
+    points under the mesh, launches counted in this rank, results written
+    to ``DIR/rank<r>.json`` (and rank 0's state dicts and outputs)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fewshot_vit_tpu_torch.eval import export as export_mod
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval import run_emd
+    from fewshot_vit_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(job_dir, "spec.json")) as f:
+        spec = json.load(f)
+    rank, t_start = int(os.environ["RANK"]), time.perf_counter()
+    mesh = pmesh.make_mesh({"data": spec["data"]}, spec["device"])
+    dev = mesh.device
+    out = {"rank": rank, "backend": mesh.backend, "device": str(dev),
+           "describe": mesh.describe()}
+    save = (lambda obj, name: torch.save(obj, os.path.join(job_dir, name))) if rank == 0 else (
+        lambda obj, name: None)
+    if spec["data"] == 1:  # NCCL, one rank: a collective on the default group, then SUN
+        x = torch.ones(2, device=dev)
+        dist.all_reduce(x)
+        out["all_reduce_ok"] = bool((x == 1).all())
+    else:
+        out["gloo_cuda_probe"] = _gloo_cuda_probe(dev)
+        mesh2 = ["--mesh-data", str(spec["data"]), "--device", spec["device"]]
+        accs, secs, counts = _counted(lambda: eval_run.main(
+            ["--config", spec["eval_cfg"], "--episodes", str(MESH_EPISODES), "--fold-bn",
+             "--bf16"] + mesh2))
+        out["eval_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts,
+                            "episodes_per_s": _mesh_eval_timing(dev, spec["pth"], mesh)}
+        accs, secs, counts = _counted(lambda: run_emd.main(
+            ["--config", spec["emd_cfg"], "--shot", "1", "--episodes", str(MESH_EMD_EPISODES),
+             "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16"] + mesh2))
+        out["run_emd_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts}
+        _, sd, loss, secs, counts = _mesh_sund_step(dev, mesh)
+        save(sd, "sund.pt")
+        out["sund_step"] = {"loss": loss, "s": secs, "launches": counts}
+        outs, ms, counts = _serve_calls(dev, spec["artifact"], spec["serve_inputs"], mesh)
+        save(torch.cat([o.cpu() for o in outs]), "serve.pt")
+        out["serve"] = {"ms_per_call": ms, "launches": counts}
+    _, sd, loss, secs, counts, again = _mesh_sun_step(dev, mesh)
+    save(sd, "sun.pt")
+    out["sun_step"] = {"loss": loss, "s": secs, "launches": counts}
+    if spec["data"] > 1:  # the NCCL rank shares the card with the one-rank runs: not timed
+        warm_s = again(False)[0]
+        clocked_s, coll_s, n_coll = again(True)
+        out["sun_step"].update({"warm_s": warm_s, "clocked_s": clocked_s,
+                                "collectives_s": coll_s, "collectives": n_coll})
+    out["rank_s"] = time.perf_counter() - t_start
+    with open(os.path.join(job_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _serve_calls(dev, path, inputs, mesh):
+    """``eval.export.serve`` of the artifact at ``path`` over the batches
+    saved at ``inputs``, after one warm call: (outputs, ms per call, the
+    last call's launches)."""
+    import torch
+
+    from fewshot_vit_tpu_torch.eval import export as export_mod
+
+    ep = export_mod.load_exported(path, device=str(dev), mesh=mesh)
+    batches = [[t.to(dev) for t in b] for b in torch.load(inputs)]
+    with torch.no_grad():
+        export_mod.serve(ep, *batches[0], mesh=mesh)
+        calls = [_counted(lambda: export_mod.serve(ep, *b, mesh=mesh)) for b in batches]
+    return [c[0] for c in calls], [c[1] * 1e3 for c in calls], calls[-1][2]
+
+
+def _launch_group(job_dir, nproc, spec):
+    """Start ``nproc`` ranks of ``_mesh_rank`` on this card with
+    ``torch.distributed.run`` (not waited for)."""
+    import socket
+
+    os.makedirs(job_dir, exist_ok=True)
+    with open(os.path.join(job_dir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+           "--master-addr", "127.0.0.1", "--master-port", str(port),
+           os.path.abspath(__file__), "--mesh-rank", job_dir]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               OMP_NUM_THREADS="1")
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env)
+
+
+def _wait_group(proc, job_dir, nproc, label):
+    try:
+        text = proc.communicate(timeout=MESH_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        _fail(f"{label}: the ranks outlived {MESH_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        print(text[-6000:])
+        _fail(f"{label}: torch.distributed.run exited {proc.returncode}")
+    outs = []
+    for r in range(nproc):
+        with open(os.path.join(job_dir, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, text
+
+
+STATE_RULES = {"param": 2e-5, "stem": float("inf"), "bn_stat": 1e-5}  # ROADMAP section 3
+ROUNDING = 2e-8  # about two fp32 ulps of a weight of 0.1 (7.5e-9 each)
+
+
+def _hold_state(label, got, want, start, loss_got, loss_want):
+    """The trainer rules of ROADMAP section 3 between two state dicts after
+    one step from ``start``, each bound to the step's own update so that a
+    state left unchanged or a step that lost a rank's share fails: loss
+    1e-4; for each kind (the parameters, the stem's parameters, the BN
+    statistics) max|d| within its limit, the smaller of its rule in
+    ``STATE_RULES`` (the stem has none: the stem rule, 1e-2 of its update)
+    and 1e-2 of the kind's largest update, but not below ``ROUNDING``; and
+    the largest update of each kind of parameter at least 10 times its
+    limit. Returns the differences, updates and limits."""
+    err, upd, seen = (dict.fromkeys(STATE_RULES, 0.0) for _ in range(3))
+    for k, w in want.items():
+        if not w.numel():
+            continue
+        kind = "bn_stat" if _is_bn_stat(k) else "stem" if ".stem." in f".{k}" else "param"
+        w = w.float()
+        err[kind] = max(err[kind], (got[k].float() - w).abs().max().item())
+        upd[kind] = max(upd[kind], (w - start[k].float().cpu()).abs().max().item())
+        seen[kind] = 1.0
+    d = {"loss": abs(loss_got - loss_want)}
+    ok, parts = d["loss"] <= 1e-4, [f"|dloss|={d['loss']:.3e} (tol 1e-4)"]
+    for kind, rule in STATE_RULES.items():
+        lim = max(min(rule, 1e-2 * upd[kind]), ROUNDING)
+        d.update({kind: err[kind], f"{kind}_update": upd[kind], f"{kind}_limit": lim})
+        ok = ok and err[kind] <= lim
+        parts.append(f"{kind} max|d|={err[kind]:.3e} (limit {lim:.3e}), max|update|="
+                     f"{upd[kind]:.3e}")
+        if kind != "bn_stat" and seen[kind] and upd[kind] < 10 * lim:
+            ok = False
+            parts.append(f"{kind}: the update is not 10 times the limit, so the check cannot "
+                         "tell the step from no step")
+    print(f"{label}: {', '.join(parts)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"{label} disagrees")
+    return d
+
+
+def _acc_rule(label, a, b):
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    differ, mean_d = float((a != b).mean()), float(abs(a - b).mean())
+    print(f"{label}: {len(a)} episodes, differing={differ:.4f}, mean|dacc|={mean_d:.5f}, "
+          f"acc {a.mean():.4f} vs {b.mean():.4f}")
+    if a.shape != b.shape or differ > 0.01 or mean_d > 0.005:
+        _fail(f"{label}: the accuracy rule fails")
+    return {"episodes_differing": differ, "mean_abs_d_acc": mean_d}
+
+
+def _slice10(dev, tmp, pth, tag):
+    """Phases 29-31: the mesh on the card. One NCCL rank runs the SUN step
+    under ``mesh: {data: 1}`` while this process makes the one-rank runs;
+    then two gloo ranks on cuda:0 run ``eval.run --mesh-data 2``,
+    ``eval.run_emd --mesh-data 2``, a SUN-D step (one episode a rank), the
+    2-shard scorer artifact and a SUN step (256 images a rank). Each is held
+    to this process's one-rank run of the same work; launches are counted
+    in each rank; the one-rank times are taken with nothing else on the
+    card."""
+    import torch
+
+    from fewshot_vit_tpu_torch.eval import export as export_mod
+    from fewshot_vit_tpu_torch.eval import run as eval_run
+    from fewshot_vit_tpu_torch.eval import run_emd
+
+    t_start = time.perf_counter()
+    per = _mhsa_per_forward()
+    eval_cfg = _write_cfg(tmp, "mesh_eval", _mesh_eval_cfg(pth))
+    emd_cfg = _write_cfg(tmp, "mesh_emd", _emd_cfg(pth, 1))
+    art = os.path.join(tmp, "scorer_fp32_2shard.pt2")
+    t0 = time.perf_counter()
+    _cli(export_mod, ["--config", eval_cfg, "--out", art, "--fold-bn", "--ep-per-batch",
+                      str(EXPORT_EPB), "--data-shards", "2", "--device", str(dev)])
+    export_s = time.perf_counter() - t0
+
+    spec = {"eval_cfg": eval_cfg, "emd_cfg": emd_cfg, "pth": pth, "artifact": art,
+            "serve_inputs": os.path.join(tmp, "scorer_fp32_in.pt"), "device": dev.type}
+    gloo_dir, nccl_dir = os.path.join(tmp, "mesh_gloo"), os.path.join(tmp, "mesh_nccl")
+    # the NCCL rank runs while this process makes the one-rank runs that are
+    # compared, not timed; then this process times evaluate, a warm SUN step
+    # and the unsharded scorer alone on the card
+    t0 = time.perf_counter()
+    proc = _launch_group(nccl_dir, 1, {**spec, "data": 1})
+    one = {}
+    (accs, _), secs, counts = _counted(lambda: _cli(eval_run, [
+        "--config", eval_cfg, "--episodes", str(MESH_EPISODES), "--fold-bn", "--bf16",
+        "--device", str(dev)]))
+    one["eval_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts}
+    (accs, _), secs, counts = _counted(lambda: _cli(run_emd, [
+        "--config", emd_cfg, "--shot", "1", "--episodes", str(MESH_EMD_EPISODES),
+        "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16", "--device", str(dev)]))
+    one["run_emd_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts}
+    sund_start, sund_sd, sund_loss, _, _ = _mesh_sund_step(dev, None)
+    sun_start, sun_sd, sun_loss, sun_s, _, sun_again = _mesh_sun_step(dev, None)
+    nccl, _ = _wait_group(proc, nccl_dir, 1, "the NCCL rank")
+    nccl_s = time.perf_counter() - t0
+    one["eval_bf16"]["episodes_per_s"] = _mesh_eval_timing(dev, pth, None)
+    sun_warm_s = sun_again(False)[0]
+    _, one_serve_ms, _ = _serve_calls(dev, os.path.join(tmp, "scorer_fp32.pt2"),
+                                      spec["serve_inputs"], None)
+    del sun_again
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks, text = _wait_group(_launch_group(gloo_dir, 2, {**spec, "data": 2}), gloo_dir, 2,
+                              "the gloo group")
+    gloo_s = time.perf_counter() - t0
+    print("\n".join(ln for ln in text.splitlines() if "acc=" in ln))
+
+    entry = {"phases_s": None, "export_2shard_s": export_s, "gloo_group_s": gloo_s,
+             "nccl_group_s": nccl_s}
+    launches = {}
+    for r in ranks:
+        if r["backend"] != "gloo" or r["device"] != "cuda:0":
+            _fail(f"gloo rank {r['rank']}: backend {r['backend']} on {r['device']}")
+        print(f"mesh {tag}: rank {r['rank']}: {r['describe']}; gloo with cuda:0 tensors: "
+              f"{r['gloo_cuda_probe']}")
+    routes = lambda n, route: {r: (n if r == route else 0) for r in ("general", "tensor_core")}
+    n_eval = MESH_EPISODES // CLI_EP_PER_BATCH
+    n_emd = MESH_EMD_EPISODES // CLI_EP_PER_BATCH
+    expect = {  # per rank: the same batches as one rank, half the episodes in each
+        "eval_bf16": {"fused_mhsa": routes(per * n_eval, "tensor_core"),
+                      "sinkhorn_pallas": {"general": 0, "packed": 0}},
+        "run_emd_bf16": {"fused_mhsa": routes(per * n_emd, "tensor_core"),
+                         "sinkhorn_pallas": {"general": 0, "packed": n_emd}},
+        "sund_step": {"fused_mhsa": routes(0, "general"),
+                      "sinkhorn_pallas": {"general": 0, "packed": 1}},
+        "sun_step": {"fused_mhsa": routes(per, "general"),
+                     "sinkhorn_pallas": {"general": 0, "packed": 0}},
+        "serve": {"fused_mhsa": routes(per, "general"),
+                  "sinkhorn_pallas": {"general": 0, "packed": 0}},
+    }
+    for name, want in expect.items():
+        got = [r[name]["launches"] for r in ranks]
+        launches[f"mesh2_{name}"] = {f"rank{i}": c for i, c in enumerate(got)}
+        if any(g != want for g in got):
+            _fail(f"mesh {name}: expected {want} launches on each rank, counted {got}")
+    if one["eval_bf16"]["launches"] != expect["eval_bf16"]:
+        _fail(f"one-rank eval.run: {one['eval_bf16']['launches']}")
+    launches["nccl1_sun_step"] = {"rank0": nccl[0]["sun_step"]["launches"]}
+    if nccl[0]["sun_step"]["launches"] != expect["sun_step"]:
+        _fail(f"the NCCL rank's SUN step: {nccl[0]['sun_step']['launches']}")
+    if nccl[0]["backend"] != "nccl" or not nccl[0]["all_reduce_ok"]:
+        _fail(f"the NCCL rank: backend {nccl[0]['backend']}, all_reduce {nccl[0]['all_reduce_ok']}")
+
+    # every rank returns the whole result; held to the one-rank run
+    for name in ("eval_bf16", "run_emd_bf16"):
+        if ranks[0][name]["accs"] != ranks[1][name]["accs"]:
+            _fail(f"mesh {name}: the ranks returned different accuracies")
+        entry[name] = _acc_rule(f"mesh {tag}: {name} two gloo ranks vs one rank",
+                                ranks[0][name]["accs"], one[name]["accs"])
+        entry[name].update({"two_rank_cli_s": ranks[0][name]["s"], "one_rank_cli_s": one[name]["s"]})
+    entry["eval_bf16"]["identical"] = ranks[0]["eval_bf16"]["accs"] == one["eval_bf16"]["accs"]
+    entry["eval_bf16"]["episodes_per_s"] = {
+        "two_gloo_ranks": [r["eval_bf16"]["episodes_per_s"] for r in ranks],
+        "one_rank": one["eval_bf16"]["episodes_per_s"]}
+    print(f"timing {tag}: evaluate --fold-bn bf16, {MESH_EPISODES} episodes, 8 a batch: two gloo "
+          f"ranks on one card {entry['eval_bf16']['episodes_per_s']['two_gloo_ranks']} "
+          f"episodes/s, one rank {one['eval_bf16']['episodes_per_s']:.1f} episodes/s (two ranks "
+          f"sharing a card measure correctness, not scaling)")
+    load = lambda name, d: torch.load(os.path.join(d, name), map_location="cpu")
+    cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
+    entry["sund_step"] = _hold_state(f"mesh {tag}: SUN-D step, two gloo ranks vs one rank",
+                                     load("sund.pt", gloo_dir), cpu(sund_sd), sund_start,
+                                     ranks[0]["sund_step"]["loss"], sund_loss)
+    entry["sun_step"] = _hold_state(f"mesh {tag}: SUN step, two gloo ranks vs one rank",
+                                    load("sun.pt", gloo_dir), cpu(sun_sd), sun_start,
+                                    ranks[0]["sun_step"]["loss"], sun_loss)
+    entry["sun_step_nccl"] = _hold_state(f"mesh {tag}: SUN step, one NCCL rank under mesh "
+                                         f"{{data: 1}} vs no mesh", load("sun.pt", nccl_dir),
+                                         cpu(sun_sd), sun_start, nccl[0]["sun_step"]["loss"],
+                                         sun_loss)
+    s2 = ranks[0]["sun_step"]
+    entry["sun_step"].update({k: s2[k] for k in ("s", "warm_s", "clocked_s", "collectives_s",
+                                                  "collectives")})
+    entry["sun_step"].update({"one_rank_s": sun_s, "one_rank_warm_s": sun_warm_s})
+    entry["sun_step_nccl"]["s"] = nccl[0]["sun_step"]["s"]
+    print(f"timing {tag}: SUN step of 512 images, the second (warm) step: two gloo ranks "
+          f"{s2['warm_s']:.3f} s, one rank with no mesh, alone on the card, {sun_warm_s:.3f} s; "
+          f"a third step of the two ranks with host clocks around each of its "
+          f"{s2['collectives']} collectives (synchronized): {s2['clocked_s']:.3f} s, "
+          f"{s2['collectives_s']:.3f} s of it in collectives; first steps, warm-up included: "
+          f"two gloo ranks {s2['s']:.3f} s, one rank {sun_s:.3f} s, one NCCL rank "
+          f"{nccl[0]['sun_step']['s']:.3f} s (beside the one-rank runs)")
+    got = load("serve.pt", gloo_dir)
+    want = torch.cat(torch.load(os.path.join(tmp, "scorer_fp32_out.pt")))
+    err = (got - want).abs().max().item()
+    entry["serve"] = {"max_abs_d": err, "ms_per_call_rank0": ranks[0]["serve"]["ms_per_call"],
+                      "ms_per_call_unsharded_one_rank": one_serve_ms}
+    print(f"mesh {tag}: the 2-shard scorer served by two gloo ranks against the unsharded "
+          f"artifact: max|d|={err:.3e} (tol 1e-4, the fp32 artifact rule); warm ms per call, "
+          f"rank 0 of two sharing the card "
+          f"{[round(x, 2) for x in ranks[0]['serve']['ms_per_call']]}, the unsharded artifact "
+          f"served by one process alone on the card {[round(x, 2) for x in one_serve_ms]}")
+    if not err <= 1e-4:
+        _fail("the 2-shard scorer disagrees with the unsharded artifact")
+    entry["gloo_cuda_probe"] = ranks[0]["gloo_cuda_probe"]
+    entry["rank_s"] = [r["rank_s"] for r in ranks] + [nccl[0]["rank_s"]]
+    entry["phases_s"] = time.perf_counter() - t_start
+    print(f"slice 10 phases (29-31) {tag}: {entry['phases_s']:.1f} s (export {export_s:.1f}, "
+          f"the NCCL rank beside the one-rank runs {nccl_s:.1f}, gloo group {gloo_s:.1f})")
+    return entry, launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", default=None, help="write a profiler table here")
+    p.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
+    if args.mesh_rank:  # one rank of a slice-10 group
+        return _mesh_rank(args.mesh_rank)
 
     # phase 1
     t_start = time.perf_counter()
@@ -3138,6 +3669,8 @@ def main() -> int:
         slice9["ops_retimed"] = _retime_ops(dev, tag)
         slice9["phases_s"] = time.perf_counter() - t9
         print(f"slice 9 phases (24-28) {tag}: {slice9['phases_s']:.1f} s")
+        # phases 29-31: the mesh
+        slice10, slice10_launches = _slice10(dev, tmp, pth, tag)
     for entry in kernels:
         entry["train_launches"] = {
             path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
@@ -3152,12 +3685,17 @@ def main() -> int:
                                     for path, c in slice8_launches.items()}
         entry["slice9_launches"] = {path: sum(c[entry["name"]].values())
                                     for path, c in slice9_launches.items()}
+        # per rank: the mesh paths launch both kernels on every rank
+        entry["slice10_launches"] = {path: {r: sum(c[entry["name"]].values())
+                                            for r, c in per_rank.items()}
+                                     for path, per_rank in slice10_launches.items()}
     clis["zoo"] = zoo_eval
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training, "card": card}))
     print(json.dumps({"eval_clis": clis, "card": card}))
     print(json.dumps({"slice8": slice8, "card": card}))
     print(json.dumps({"slice9": slice9, "card": card}))
+    print(json.dumps({"slice10": slice10, "card": card}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

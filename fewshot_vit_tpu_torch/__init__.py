@@ -2,7 +2,7 @@
 
 The JAX package stays the reference; this package mirrors its module layout
 (``core``, ``data``, ``ops``, ``kernels``, ``models``, ``heads``, ``eval``,
-``train``, ``checkpoint``) so each module's counterpart is found under the same path.
+``train``, ``checkpoint``, ``parallel``) so each module's counterpart is found under the same path.
 It imports ``torch``, numpy and scipy, never ``jax``/``flax`` or the JAX
 package. The Pallas TPU kernels become CUDA C++ kernels for Hopper
 (``sm_90a``) under ``csrc/``, built with ``nvcc`` at first use.
@@ -42,7 +42,12 @@ Ported so far:
     activations, int32 products through ``torch._int_mm``), ``eval.export``
     (``torch.export`` programs that call both kernels as the custom ops
     ``fewshot_vit_tpu_torch::fused_mhsa`` / ``::sinkhorn_pallas``),
-    ``core/watchdog.py`` and the trainers' ``--profile-dir``.
+    ``core/watchdog.py`` and the trainers' ``--profile-dir``;
+  * slice 10, the mesh (``parallel``): one process a device over
+    ``torch.distributed`` (``torchrun``), ``mesh:`` / ``distributed:`` in
+    every trainer with global BN statistics, ``--mesh-data`` in both eval
+    CLIs, ``eval.export --data-shards`` and the column-parallel ``model``
+    axis.
 
 Entry points (``models.make``, ``eval.episodic.evaluate``/``encode_dataset``,
 ``eval.emd_eval.evaluate_emd``, and ``python -m fewshot_vit_tpu_torch.X`` for

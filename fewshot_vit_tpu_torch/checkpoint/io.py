@@ -27,7 +27,11 @@ def save_variables(path: str, variables: Any, meta: Optional[Dict] = None) -> No
     Atomic: everything is written to a ``.tmp`` sibling first and swapped
     into place once arrays and meta are on disk, so a crash mid-save never
     destroys the previous checkpoint (the per-epoch ``resume`` directory is
-    the crash-recovery path)."""
+    the crash-recovery path). In a process group only rank 0 writes."""
+    from ..parallel.mesh import is_main_process
+
+    if not is_main_process():
+        return
     path = os.path.abspath(path)
     tmp, old = path + ".tmp", path + ".old"
     if os.path.exists(tmp):

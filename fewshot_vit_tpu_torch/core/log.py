@@ -56,18 +56,23 @@ def compute_n_params(module, return_str: bool = True):
 
 
 class RunLogger:
-    """Text log + JSONL metric stream for one training/eval run."""
+    """Text log + JSONL metric stream for one training/eval run. In a
+    process group only rank 0 prints and writes; the other ranks' loggers
+    do nothing."""
 
     def __init__(self, save_dir: Optional[str] = None, stdout: bool = True):
+        from ..parallel.mesh import is_main_process
+
         self.save_dir = save_dir
-        self.stdout = stdout
-        if save_dir is not None:
+        self.writes = is_main_process()
+        self.stdout = stdout and self.writes
+        if save_dir is not None and self.writes:
             os.makedirs(save_dir, exist_ok=True)
 
     def log(self, msg: str) -> None:
         if self.stdout:
             print(msg, flush=True)
-        if self.save_dir is not None:
+        if self.save_dir is not None and self.writes:
             with open(os.path.join(self.save_dir, "log.txt"), "a") as f:
                 print(msg, file=f)
 
@@ -77,7 +82,7 @@ class RunLogger:
         (reference ``utils.visualize_dataset``: tensorboard images become an
         on-disk grid), ``visualize_<name>.png``, the JAX package's draw of
         ``np.random.default_rng(seed)``. Returns the written path."""
-        if self.save_dir is None:
+        if self.save_dir is None or not self.writes:
             return None
         import numpy as np
 
@@ -89,7 +94,7 @@ class RunLogger:
         """Write a square grid PNG of (N, H, W, 3) uint8 images into the run
         directory as ``<name>.png``, row-major, ceil(sqrt(N)) columns.
         Returns the written path."""
-        if self.save_dir is None:
+        if self.save_dir is None or not self.writes:
             return None
         import numpy as np
         from PIL import Image
@@ -107,7 +112,7 @@ class RunLogger:
         return path
 
     def metrics(self, step: int, **values: Any) -> None:
-        if self.save_dir is None:
+        if self.save_dir is None or not self.writes:
             return
         rec: Dict[str, Any] = {"step": step, "time": time.time()}
         rec.update({k: float(v) for k, v in values.items()})

@@ -182,6 +182,12 @@ def grid_patches(
                           torch.cat(x1, 1), out_size)
 
 
+def sampling_uniforms(generator: Optional[torch.Generator], num_patch: int, n: int,
+                      device) -> torch.Tensor:
+    """The (num_patch, 4, n) U[0, 1) draws of ``sampling_patches`` over n images."""
+    return torch.rand(num_patch, 4, n, generator=generator, device=device)
+
+
 def sampling_patches(
     generator: Optional[torch.Generator],
     images: torch.Tensor,
@@ -196,8 +202,7 @@ def sampling_patches(
     from .augment import random_resized_crop
 
     if uniforms is None:
-        uniforms = torch.rand(num_patch, 4, images.shape[0], generator=generator,
-                              device=images.device)
+        uniforms = sampling_uniforms(generator, num_patch, images.shape[0], images.device)
     patches = [random_resized_crop(None, images, out_size, scale=scale, uniforms=u)
                for u in uniforms]
     return torch.stack(patches, dim=1)

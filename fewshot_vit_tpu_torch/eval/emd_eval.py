@@ -26,7 +26,9 @@ import torch
 
 from ..core import rng as rng_mod
 from ..core.device import resolve_device
+from ..core.rng import torch_generator
 from ..data.datasets import ArrayDataset
+from ..data.patches import sampling_uniforms
 from ..data.transforms import normalize
 from ..ops.metric import normal_confidence_interval, per_episode_acc
 from ..train.meta_tune_emd import episode_logits, make_emd_episode_fn, make_patch_fn
@@ -59,17 +61,32 @@ def make_emd_cached_episode_fn(head, way: int, shot: int, sfc: bool,
     return fn
 
 
-def make_emd_eval_run_fn(episode_fn: Callable, labels: torch.Tensor) -> Callable:
+def make_emd_eval_run_fn(episode_fn: Callable, labels: torch.Tensor, mesh=None,
+                         batch_draws: Optional[Callable] = None) -> Callable:
     """``(data, idx (n_batches, epb, ep_len)) -> accs (n_batches*epb,)`` on the
     device. Episode ``b*epb + e`` gets global index ``b*epb + e``, so the
-    accuracies do not depend on the grouping."""
+    accuracies do not depend on the grouping.
+
+    ``mesh``: each rank runs its contiguous block of every batch's episodes
+    (their global indices, so SFC's shuffles are those of the whole batch)
+    and the accuracies are gathered back in global order on every rank.
+    ``batch_draws(first, block) -> kwargs`` gives a batch whose random draws
+    belong to the whole batch (``sampling`` crops) the key and this block's
+    share of the whole batch's draws."""
 
     def run(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         epb = idx.shape[1]
-        lab = labels[None].expand(epb, -1)
-        accs = [per_episode_acc(episode_fn(data[idx_b], range(b * epb, (b + 1) * epb)), lab)
-                for b, idx_b in enumerate(idx)]
-        return torch.cat(accs)
+        block = mesh.block(epb) if mesh is not None else slice(0, epb)
+        lab = labels[None].expand(block.stop - block.start, -1)
+        accs = []
+        for b, idx_b in enumerate(idx):
+            kw = batch_draws(b * epb, block) if batch_draws is not None else {}
+            ids = range(b * epb, (b + 1) * epb)[block]
+            accs.append(per_episode_acc(episode_fn(data[idx_b[block]], ids, **kw), lab))
+        accs = torch.stack(accs)  # (n_batches, this rank's episodes)
+        if mesh is not None:
+            accs = mesh.gather(accs, dim=1)
+        return accs.reshape(-1)
 
     return run
 
@@ -112,6 +129,7 @@ def evaluate_emd(
     images_dev: Optional[torch.Tensor] = None,
     seed: int = rng_mod.DEFAULT_SEED,
     device: Any = "cuda",
+    mesh=None,
 ) -> Tuple[float, float, np.ndarray]:
     """SUN-D episodic eval of a ``DeepEMD`` head -> (acc, ci95, accs).
 
@@ -122,7 +140,9 @@ def evaluate_emd(
     runs with autograd inside this ``no_grad`` eval. ``mode='sampling'``
     (``num_patch`` random resized crops per image) draws each episode batch's
     crops from a generator seeded by (``seed``, its first global episode
-    index); its patches are random, so it cannot be ``cached``."""
+    index); its patches are random, so it cannot be ``cached``. ``mesh`` (a
+    ``parallel.Mesh``): episode parallelism over its ``data`` axis, which
+    must divide ``ep_per_batch``; every rank returns the unsharded result."""
     dev = resolve_device(device)
     _on_device(head, dev)
     if indices is None:
@@ -144,6 +164,17 @@ def evaluate_emd(
         ep_fn = make_emd_episode_fn(head, way, shot, query, patch_fn, dataset.mean,
                                     dataset.std, sfc, sfc_kw, seed=seed)
     labels = torch.arange(way, device=dev).repeat(query)
-    accs = make_emd_eval_run_fn(ep_fn, labels)(data, idx).cpu().numpy()[:n_episodes]
+    batch_draws = None
+    if mesh is not None and mode == "sampling":
+        n_img = idx.shape[2]
+
+        def batch_draws(first, block):  # the whole batch's crops, this block's share
+            u = sampling_uniforms(torch_generator(dev, seed, first, 1), num_patch,
+                                  idx.shape[1] * n_img, dev)
+            return {"key": (seed, first),
+                    "uniforms": u[..., block.start * n_img:block.stop * n_img]}
+
+    run = make_emd_eval_run_fn(ep_fn, labels, mesh, batch_draws)
+    accs = run(data, idx).cpu().numpy()[:n_episodes]
     m, h = normal_confidence_interval(accs)
     return m, h, accs

@@ -74,13 +74,18 @@ def evaluate(
     images_dev: Optional[torch.Tensor] = None,
     indices: Optional[np.ndarray] = None,
     device: Any = "cuda",
+    mesh=None,
 ) -> Tuple[float, float, np.ndarray]:
     """Full-protocol eval (re-encode every episode). Returns (acc, ci95, accs).
 
     ``head`` must already be on ``device``. Pass ``images_dev`` (the uint8
     ``dataset.images`` on the device) to share one upload across calls.
     ``indices`` overrides episode sampling with an explicit
-    ``(n_batches, ep_per_batch*way*(shot+query))`` index matrix.
+    ``(n_batches, ep_per_batch*way*(shot+query))`` index matrix. ``mesh``
+    (a ``parallel.Mesh``): episode parallelism, each rank scoring its
+    contiguous block of every batch's episodes; the per-episode accuracies
+    are gathered back in global episode order on every rank, so every rank
+    returns the same result, equal to the unsharded one.
     """
     dev = resolve_device(device)
     _on_device(head, dev)
@@ -88,14 +93,23 @@ def evaluate(
         indices = sample_episode_indices(
             dataset, n_episodes, way, shot + query, ep_per_batch, seed)
     idx_all = torch.from_numpy(np.asarray(indices, np.int64)).to(dev)
+    epb = ep_per_batch
+    if mesh is not None:  # this rank's block of every batch's episodes
+        block = mesh.block(ep_per_batch)
+        idx_all = idx_all.reshape(len(idx_all), ep_per_batch, -1)[:, block]
+        idx_all = idx_all.reshape(len(idx_all), -1)
+        epb = block.stop - block.start
     images_dev = _upload(dataset, images_dev, dev)
-    labels = make_nk_label(way, query, ep_per_batch, device=dev)
+    labels = make_nk_label(way, query, epb, device=dev)
     accs = []
     for idx in idx_all:
         x = normalize(images_dev[idx], dataset.mean, dataset.std)
-        xs, xq = split_shot_query(x, way, shot, query, ep_per_batch)
+        xs, xq = split_shot_query(x, way, shot, query, epb)
         accs.append(per_episode_acc(head(xs, xq), labels))
-    accs = torch.cat(accs).cpu().numpy()[:n_episodes]
+    accs = torch.stack(accs)  # (n_batches, epb)
+    if mesh is not None:
+        accs = mesh.gather(accs, dim=1)
+    accs = accs.reshape(-1).cpu().numpy()[:n_episodes]
     m, h = mean_confidence_interval(accs)
     return m, h, accs
 

@@ -27,14 +27,24 @@ float32 out):
 ``platforms`` is the counterpart of JAX's multi-platform export: ``("cpu",
 "cuda")`` traces on the CPU and ``load_exported(..., device="cuda")`` moves
 the program to the card (``move_to_device_pass``); a single platform traces
-on that device and loads only there. ``data_shards`` (a sharded artifact)
-waits for the mesh. ``solver: exact`` is refused, as JAX's export refuses
-its host callback.
+on that device and loads only there. ``solver: exact`` is refused, as
+JAX's export refuses its host callback.
+
+``data_shards=N`` builds an N-rank artifact, exportable from one process
+(JAX's ``AbstractMesh`` export): the program takes the whole batch and a
+0-d ``shard`` index, and scores only that shard's contiguous block of the
+episode (or batch) axis, with that block's baked SFC shuffles and crops.
+``serve`` runs it under a mesh of N ``data`` ranks, each rank its own
+block through the custom ops, and gathers the full result on every rank;
+``load_exported`` refuses an N-shard artifact outside such a mesh, as JAX's
+needs its N devices. The artifact records ``data_shards`` in its
+``extra_files``.
 
 CLI::
 
   python -m fewshot_vit_tpu_torch.eval.export --config C.yaml --out scorer.pt2 \\
-      --shot 1 [--encoder-only | --emd] [--platforms cpu,cuda] [--device cpu]
+      --shot 1 [--encoder-only | --emd] [--platforms cpu,cuda] [--data-shards N] \\
+      [--device cpu]
 
 Serving side (imports torch and the kernels' registrations only)::
 
@@ -55,7 +65,6 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..data.transforms import MEAN, STD, normalize
-from ..train.runner import AUXILIARIES
 
 PLATFORMS = ("cpu", "cuda")
 
@@ -74,9 +83,16 @@ def _trace_device(platforms: Optional[Sequence[str]], module: nn.Module) -> Tupl
     return resolve_device("cpu" if "cpu" in plats else "cuda"), plats
 
 
-def _refuse_shards(data_shards: int) -> None:
-    if data_shards:
-        raise NotImplementedError(f"'--data-shards' (a sharded artifact) {AUXILIARIES}")
+def _check_shards(n: int, data_shards: int, what: str) -> None:
+    if data_shards and n % data_shards:
+        raise ValueError(f"{what}={n} must divide over data_shards={data_shards}")
+
+
+def _block(x: torch.Tensor, shards: int, shard: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Block ``shard`` of ``shards`` contiguous blocks of ``x`` along ``dim``."""
+    shape = x.shape
+    x = x.reshape(*shape[:dim], shards, shape[dim] // shards, *shape[dim + 1:])
+    return torch.index_select(x, dim, shard.reshape(1)).squeeze(dim)
 
 
 def _on(module: nn.Module, dev: torch.device) -> nn.Module:
@@ -88,12 +104,15 @@ def _on(module: nn.Module, dev: torch.device) -> nn.Module:
 
 
 def _export(module: nn.Module, example: Tuple[torch.Tensor, ...], dev: torch.device,
-            platforms: Tuple[str, ...]) -> torch.export.ExportedProgram:
+            platforms: Tuple[str, ...], data_shards: int = 0) -> torch.export.ExportedProgram:
     module.eval()
+    if data_shards:
+        example = example + (torch.zeros((), dtype=torch.int64),)
     with torch.no_grad():
         ep = torch.export.export(module, tuple(x.to(dev) for x in example))
     ep.platforms = platforms  # read by save_exported
     ep.traced_on = dev.type
+    ep.data_shards = data_shards
     return ep
 
 
@@ -102,34 +121,47 @@ def _u8(*shape) -> torch.Tensor:
 
 
 class _EpisodeScorer(nn.Module):
-    def __init__(self, head, mean, std):
+    def __init__(self, head, mean, std, shards: int = 0):
         super().__init__()
-        self.head, self.mean, self.std = head, mean, std
+        self.head, self.mean, self.std, self.shards = head, mean, std, shards
 
-    def forward(self, x_shot, x_query):
+    def forward(self, x_shot, x_query, shard=None):
+        if self.shards:
+            x_shot, x_query = (_block(x, self.shards, shard) for x in (x_shot, x_query))
         return self.head(normalize(x_shot, self.mean, self.std),
                          normalize(x_query, self.mean, self.std))
 
 
 class _Encoder(nn.Module):
-    def __init__(self, encoder, mean, std):
+    def __init__(self, encoder, mean, std, shards: int = 0):
         super().__init__()
-        self.encoder, self.mean, self.std = encoder, mean, std
+        self.encoder, self.mean, self.std, self.shards = encoder, mean, std, shards
 
-    def forward(self, images):
+    def forward(self, images, shard=None):
+        if self.shards:
+            images = _block(images, self.shards, shard)
         return self.encoder(normalize(images, self.mean, self.std))[1].float()
 
 
 class _EmdEpisodeScorer(nn.Module):
-    def __init__(self, head, episode_fn, n_episodes: int, perms, draws, seed: int):
+    def __init__(self, head, episode_fn, n_episodes: int, perms, draws, seed: int,
+                 shards: int = 0):
         super().__init__()
-        self.head = head
+        self.head, self.shards = head, shards
         self.episode_fn, self.n_episodes, self.draws, self.seed = episode_fn, n_episodes, draws, seed
         self.register_buffer("perms", perms)
 
-    def forward(self, images):
-        return self.episode_fn(images, list(range(self.n_episodes)), key=(self.seed, 0),
-                               perms=self.perms, **self.draws)
+    def forward(self, images, shard=None):
+        perms, draws, n = self.perms, dict(self.draws), self.n_episodes
+        if self.shards:  # this shard's episodes, with their shuffles and crops
+            images = _block(images, self.shards, shard)
+            n //= self.shards
+            if perms is not None:
+                perms = _block(perms, self.shards, shard)
+            if "uniforms" in draws:
+                draws["uniforms"] = _block(draws["uniforms"], self.shards, shard, dim=2)
+        return self.episode_fn(images, list(range(n)), key=(self.seed, 0), perms=perms,
+                               **draws)
 
 
 def export_episode_scorer(head, *, way: int, shot: int, query: int, image_size: int,
@@ -140,22 +172,25 @@ def export_episode_scorer(head, *, way: int, shot: int, query: int, image_size: 
     with its weights baked in: ``x_shot (E, way, shot, H, W, 3)`` and
     ``x_query (E, way*query, H, W, 3)`` uint8, normalized with the stats
     captured here, -> ``(E, way*query, way)`` float32 cosine logits, the
-    forward ``eval.episodic.evaluate`` runs per episode batch."""
-    _refuse_shards(data_shards)
+    forward ``eval.episodic.evaluate`` runs per episode batch. ``data_shards``:
+    an N-rank artifact (``serve``), ``ep_per_batch % N == 0``."""
+    _check_shards(ep_per_batch, data_shards, "ep_per_batch")
     dev, plats = _trace_device(platforms, head)
     example = (_u8(ep_per_batch, way, shot, image_size, image_size, 3),
                _u8(ep_per_batch, way * query, image_size, image_size, 3))
-    return _export(_EpisodeScorer(_on(head, dev), mean, std), example, dev, plats)
+    return _export(_EpisodeScorer(_on(head, dev), mean, std, data_shards), example, dev, plats,
+                   data_shards)
 
 
 def export_encoder(encoder, *, image_size: int, batch: int = 128, mean=MEAN, std=STD,
                    platforms: Optional[Sequence[str]] = None,
                    data_shards: int = 0) -> torch.export.ExportedProgram:
-    """Export ``uint8 images (B, H, W, 3) -> (B, C)`` float32 pooled embeddings."""
-    _refuse_shards(data_shards)
+    """Export ``uint8 images (B, H, W, 3) -> (B, C)`` float32 pooled
+    embeddings; ``data_shards``: an N-rank artifact, ``batch % N == 0``."""
+    _check_shards(batch, data_shards, "batch")
     dev, plats = _trace_device(platforms, encoder)
-    return _export(_Encoder(_on(encoder, dev), mean, std),
-                   (_u8(batch, image_size, image_size, 3),), dev, plats)
+    return _export(_Encoder(_on(encoder, dev), mean, std, data_shards),
+                   (_u8(batch, image_size, image_size, 3),), dev, plats, data_shards)
 
 
 def export_emd_episode_scorer(head, *, way: int, shot: int, query: int, image_size: int,
@@ -173,8 +208,10 @@ def export_emd_episode_scorer(head, *, way: int, shot: int, query: int, image_si
     For shot > 1 the SFC shuffles are ``perms`` (E, steps, way*shot) when
     given, else ``sfc_perms(range(E), steps, way*shot, seed)``, baked as a
     buffer. ``draws`` (the patch function's ``ratios=`` / ``uniforms=``)
-    are baked the same way, as a ``sampling`` artifact's crops must be."""
-    _refuse_shards(data_shards)
+    are baked the same way, as a ``sampling`` artifact's crops must be.
+    ``data_shards``: an N-rank artifact, ``ep_per_batch % N == 0``; each
+    shard takes its episodes' shuffles and crops."""
+    _check_shards(ep_per_batch, data_shards, "ep_per_batch")
     if head.solver == "exact":
         raise NotImplementedError(
             "solver 'exact' runs the C++ simplex on the host, which an exported program "
@@ -190,28 +227,37 @@ def export_emd_episode_scorer(head, *, way: int, shot: int, query: int, image_si
     head = _on(head, dev)
     ep_fn = make_emd_episode_fn(head, way, shot, query, patch_fn, mean, std, sfc=shot > 1,
                                 sfc_kw=sfc_kw, seed=seed, explicit_sfc=True)
-    module = _EmdEpisodeScorer(head, ep_fn, ep_per_batch, perms, dict(draws or {}), seed)
+    module = _EmdEpisodeScorer(head, ep_fn, ep_per_batch, perms, dict(draws or {}), seed,
+                               data_shards)
     example = (_u8(ep_per_batch, way * (shot + query), image_size, image_size, 3),)
-    return _export(module, example, dev, plats)
+    return _export(module, example, dev, plats, data_shards)
 
 
 def save_exported(exported: torch.export.ExportedProgram, path: str) -> None:
-    """Write the program to a ``.pt2`` file with its platforms."""
-    extra = {"platforms": ",".join(exported.platforms), "traced_on": exported.traced_on}
+    """Write the program to a ``.pt2`` file with its platforms and shards."""
+    extra = {"platforms": ",".join(exported.platforms), "traced_on": exported.traced_on,
+             "data_shards": str(getattr(exported, "data_shards", 0))}
     torch.export.save(exported, path, extra_files=extra)
 
 
-def load_exported(path: str, device="cuda") -> torch.export.ExportedProgram:
+def load_exported(path: str, device="cuda", mesh=None) -> torch.export.ExportedProgram:
     """Load a ``.pt2`` written by ``save_exported`` for ``device``.
 
     Registers the kernels' ops first (imports ``fewshot_vit_tpu_torch.
     kernels``). A program traced on another device than ``device`` is moved
     there when ``device`` is among its platforms, and refused otherwise:
-    a CPU-only artifact never serves a request for the card."""
+    a CPU-only artifact never serves a request for the card. An N-shard
+    artifact loads only under ``mesh``, a ``parallel.Mesh`` of N ``data``
+    ranks, and is called through ``serve``."""
     from .. import kernels  # noqa: F401  (registers the two ops)
 
-    extra = {"platforms": "", "traced_on": ""}
+    extra = {"platforms": "", "traced_on": "", "data_shards": ""}
     ep = torch.export.load(path, extra_files=extra)
+    shards = int(extra["data_shards"] or 0)
+    have = mesh.size("data") if mesh is not None else 0
+    if shards and have != shards:
+        raise ValueError(f"{path} is a {shards}-shard artifact: it serves under a mesh of "
+                         f"{shards} data ranks, have {have or 'no mesh'}")
     plats = tuple(p for p in extra["platforms"].split(",") if p)
     if torch.device(device).type not in plats:
         raise ValueError(f"{path} was exported for {plats}, not for {torch.device(device).type}")
@@ -220,8 +266,24 @@ def load_exported(path: str, device="cuda") -> torch.export.ExportedProgram:
         from torch.export.passes import move_to_device_pass
 
         ep = move_to_device_pass(ep, dev)
-    ep.platforms, ep.traced_on = plats, extra["traced_on"]
+    ep.platforms, ep.traced_on, ep.data_shards = plats, extra["traced_on"], shards
     return ep
+
+
+def serve(exported: torch.export.ExportedProgram, *inputs: torch.Tensor, mesh=None):
+    """Call a loaded artifact. An N-shard one runs this rank's block of the
+    leading axis of ``inputs`` (the whole batch, the same on every rank)
+    and returns every rank's blocks gathered in order: the unsharded
+    artifact's result, on every rank. The callable module is built at the
+    first call and kept on ``exported``."""
+    module = getattr(exported, "served_module", None)
+    if module is None:
+        module = exported.served_module = exported.module()
+    shards = getattr(exported, "data_shards", 0)
+    if not shards:
+        return module(*inputs)
+    shard = torch.tensor(mesh.index("data"), device=inputs[0].device)
+    return mesh.gather(module(*inputs, shard))
 
 
 def main(argv=None) -> torch.export.ExportedProgram:
@@ -244,7 +306,8 @@ def main(argv=None) -> torch.export.ExportedProgram:
                    help="comma list, e.g. 'cpu,cuda' for an artifact traced on the CPU "
                         "that also serves on the card (default: --device)")
     p.add_argument("--data-shards", type=int, default=0,
-                   help="not ported (a sharded artifact comes with the mesh)")
+                   help="build an N-rank artifact: episode/batch axis sharded over an N-way "
+                        "data mesh (exportable from one process; served by eval.export.serve)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 encoder compute inside the artifact")
     p.add_argument("--fold-bn", action="store_true",
@@ -253,7 +316,10 @@ def main(argv=None) -> torch.export.ExportedProgram:
     p.add_argument("--device", default="cuda",
                    help="device to load the weights and trace on when --platforms is empty")
     args = p.parse_args(argv)
-    _refuse_shards(args.data_shards)
+    if args.encoder_only:  # before anything is built, as the export functions check it
+        _check_shards(args.batch, args.data_shards, "batch")
+    else:
+        _check_shards(args.ep_per_batch, args.data_shards, "ep_per_batch")
 
     from ..core import rng as rng_mod
     from ..core.config import load_config
@@ -323,18 +389,21 @@ def main(argv=None) -> torch.export.ExportedProgram:
         exp = export_emd_episode_scorer(
             head, way=args.way, shot=args.shot, query=args.query, image_size=img,
             patch_fn=patch_fn, sfc_kw=sfc_kw, ep_per_batch=args.ep_per_batch,
-            mean=ds_mean, std=ds_std, platforms=platforms, draws=draws)
+            mean=ds_mean, std=ds_std, platforms=platforms, draws=draws,
+            data_shards=args.data_shards)
     elif args.encoder_only:
         exp = export_encoder(head.encoder, image_size=img, batch=args.batch,
-                             mean=ds_mean, std=ds_std, platforms=platforms)
+                             mean=ds_mean, std=ds_std, platforms=platforms,
+                             data_shards=args.data_shards)
     else:
         exp = export_episode_scorer(head, way=args.way, shot=args.shot, query=args.query,
                                     image_size=img, ep_per_batch=args.ep_per_batch,
-                                    mean=ds_mean, std=ds_std, platforms=platforms)
+                                    mean=ds_mean, std=ds_std, platforms=platforms,
+                                    data_shards=args.data_shards)
     save_exported(exp, args.out)
     kind = ("EMD episode scorer" if args.emd
             else "encoder" if args.encoder_only else "episode scorer")
-    print(f"exported {kind} [{','.join(exp.platforms)}] x1 device(s) -> "
+    print(f"exported {kind} [{','.join(exp.platforms)}] x{max(1, args.data_shards)} device(s) -> "
           f"{args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)")
     return exp
 

@@ -9,6 +9,7 @@ Run:
   python -m fewshot_vit_tpu_torch.eval.run --config configs/test_mini_1shot.yaml --shot 1 --fold-bn --bf16
   python -m fewshot_vit_tpu_torch.eval.run --config ... --sauc
   python -m fewshot_vit_tpu_torch.eval.run --config ... --int8 [--bf16]
+  torchrun --nproc-per-node 2 -m fewshot_vit_tpu_torch.eval.run --config ... --mesh-data 2
 
 The config names ``dataset``, ``dataset_args``, ``encoder`` and
 ``model_args.encoder_args`` as the JAX CLI's does, and the weights as
@@ -35,7 +36,8 @@ from ..data.staging import upload_images
 from ..data.transforms import normalize
 from ..heads import meta_baseline as _heads  # noqa: F401  (registers the heads)
 from ..ops.metric import l2_normalize, mean_confidence_interval, roc_auc
-from ..train.runner import AUXILIARIES, resolve_checkpoint
+from ..parallel.mesh import is_main_process, make_mesh
+from ..train.runner import resolve_checkpoint
 from .episodic import (
     _on_device,
     _upload,
@@ -122,18 +124,22 @@ def main(argv=None) -> np.ndarray:
                    help="EXPERIMENTAL: int8 encoder weights and static activation scales "
                         "calibrated on a random sample of the eval set (implies --fold-bn; "
                         "models/quant.py)")
-    p.add_argument("--mesh-data", type=int, default=0, help="not ported (episode mesh)")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="shard episode batches over an N-process data mesh (one process a "
+                        "device, started by torchrun --nproc-per-node N)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.mesh_data:
-        raise NotImplementedError(f"'--mesh-data' (multi-device eval) {AUXILIARIES}")
-    dev = resolve_device(args.device)
+    if args.mesh_data and (args.cached or args.sauc):
+        p.error("--mesh-data is only supported in the default eval mode "
+                "(not with --cached/--sauc)")
+    mesh = make_mesh({"data": args.mesh_data}, args.device) if args.mesh_data else None
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = load_config(args.config)
 
     ds = datasets.make(cfg.get("dataset", "mini-imagenet"),
                        **dict(cfg.get("dataset_args", {}) or {}))
     head = load_model_for_eval(cfg, torch.bfloat16 if args.bf16 else torch.float32, dev)
-    if not (cfg.get("load") or cfg.get("load_encoder")):
+    if not (cfg.get("load") or cfg.get("load_encoder")) and is_main_process():
         print(RANDOM_WEIGHTS)
     if args.int8:  # after loading; folds first, as JAX's quantize_encoder_in_head
         from ..models.quant import quantize_encoder_in_head
@@ -164,10 +170,12 @@ def main(argv=None) -> np.ndarray:
         else:
             _, _, accs = evaluate(
                 head, ds, n_episodes=args.episodes, shot=args.shot,
-                ep_per_batch=EP_PER_BATCH, seed=seed, images_dev=images_dev, device=dev)
+                ep_per_batch=EP_PER_BATCH, seed=seed, images_dev=images_dev, device=dev,
+                mesh=mesh)
         all_accs.extend(accs.tolist())
         m, h = mean_confidence_interval(all_accs)
-        print(f"test epoch {epoch}: acc={m * 100:.2f} +- {h * 100:.2f} (%)")
+        if is_main_process():
+            print(f"test epoch {epoch}: acc={m * 100:.2f} +- {h * 100:.2f} (%)")
     return np.asarray(all_accs)
 
 

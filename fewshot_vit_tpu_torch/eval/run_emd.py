@@ -7,6 +7,8 @@ default.
 
 Run:
   python -m fewshot_vit_tpu_torch.eval.run_emd --config CONFIG.yaml --shot 1 --device cuda
+  torchrun --nproc-per-node 2 -m fewshot_vit_tpu_torch.eval.run_emd --config CONFIG.yaml \
+      --ep-per-batch 4 --mesh-data 2
 
 The config is read as the JAX CLI reads it: ``test_dataset`` (else
 ``val_dataset``) with ``*_args``, ``model_args.encoder(_args)``, ``deepemd``,
@@ -34,6 +36,7 @@ from ..core.device import resolve_device
 from ..core.registry import datasets, models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
 from ..heads import deepemd as _heads  # noqa: F401  (registers the heads)
+from ..parallel.mesh import is_main_process, make_mesh
 from ..train.runner import resolve_checkpoint
 from .emd_eval import evaluate_emd
 from .run import RANDOM_WEIGHTS
@@ -55,11 +58,19 @@ def main(argv=None) -> np.ndarray:
                    help="bfloat16 encoder compute (EMD math stays fp32)")
     p.add_argument("--cached", action="store_true",
                    help="encode each image's nodes once (identical logits)")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="shard each episode batch over an N-process data mesh (one process "
+                        "a device, torchrun --nproc-per-node N; --ep-per-batch must be a "
+                        "multiple of N)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    dev = resolve_device(args.device)
+    if args.mesh_data and args.ep_per_batch % args.mesh_data:
+        p.error("--ep-per-batch must be a multiple of --mesh-data")
+    mesh = make_mesh({"data": args.mesh_data}, args.device) if args.mesh_data else None
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = is_main_process()
     cfg = load_config(args.config)
-    if cfg.get("solver") == "exact" and dev.type == "cuda":
+    if cfg.get("solver") == "exact" and dev.type == "cuda" and main_rank:
         print(EXACT_ON_CARD)
 
     key = "test_dataset" if cfg.get("test_dataset") else "val_dataset"
@@ -83,7 +94,7 @@ def main(argv=None) -> np.ndarray:
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         device=dev, seed=rng_mod.DEFAULT_SEED,
     )
-    if resolve_checkpoint(cfg, head, enc_name) is None:
+    if resolve_checkpoint(cfg, head, enc_name) is None and main_rank:
         print(RANDOM_WEIGHTS)
     # the standalone eval's SFC learning rate is 100, not the trainer's 0.1
     sfc_kw = {"steps": int(cfg.get("sfc_update_step", 100)),
@@ -94,9 +105,11 @@ def main(argv=None) -> np.ndarray:
         ep_per_batch=args.ep_per_batch, mode=mode, cached=args.cached,
         patch_list=cfg.get("patch_list", [2, 3]),
         patch_ratio=float(cfg.get("patch_ratio", 2.0)),
-        image_size=int(cfg.get("image_size", 80)), sfc_kw=sfc_kw, device=dev)
-    print(f"{way}-way {shot}-shot ({mode}): acc={m * 100:.2f} +- {h * 100:.2f} (%)  "
-          f"[{n_episodes} episodes]")
+        image_size=int(cfg.get("image_size", 80)), num_patch=int(cfg.get("num_patch", 9)),
+        sfc_kw=sfc_kw, device=dev, mesh=mesh)
+    if main_rank:
+        print(f"{way}-way {shot}-shot ({mode}): acc={m * 100:.2f} +- {h * 100:.2f} (%)  "
+              f"[{n_episodes} episodes]")
     return accs
 
 

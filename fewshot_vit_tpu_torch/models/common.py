@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum, data_group
+
 BN_EPS = 1e-5  # torch BatchNorm2d default, used across the zoo
 BN_MOMENTUM = 0.1  # torch's convention (flax: momentum 0.9)
 
@@ -35,6 +37,8 @@ _generator: contextvars.ContextVar[Optional[torch.Generator]] = contextvars.Cont
     "fewshot_vit_mask_generator", default=None)
 _injected: contextvars.ContextVar[Optional[Iterator[torch.Tensor]]] = contextvars.ContextVar(
     "fewshot_vit_injected_draws", default=None)
+_rows: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "fewshot_vit_draw_rows", default=None)
 
 
 @contextlib.contextmanager
@@ -81,6 +85,22 @@ def injected_draws(masks: Iterable[torch.Tensor]) -> Iterator[None]:
         _injected.reset(token)
 
 
+@contextlib.contextmanager
+def draw_rows(rows: Optional[torch.Tensor], n_global: int) -> Iterator[None]:
+    """Within this context a forward over a shard of a global batch draws
+    every Bernoulli mask for the ``n_global`` rows of the whole batch and
+    keeps the rows ``rows`` (this shard's rows of the global batch, in its
+    order), so a sharded step draws what the unsharded step draws for the
+    same samples. A mask whose leading axis is k rows per sample (a
+    batch-major ``(B * k, ...)`` reshape) keeps k rows per sample. ``rows``
+    None changes nothing."""
+    token = _rows.set(None if rows is None else (rows, int(n_global)))
+    try:
+        yield
+    finally:
+        _rows.reset(token)
+
+
 # --- attention capture ---------------------------------------------------------
 # The JAX zoo's ``self.sow("intermediates", ...)``: inside ``capture_attention()``
 # the Visformer, NesT and Swin attention modules record their post-softmax
@@ -124,14 +144,28 @@ def _uniform(shape, like: torch.Tensor) -> torch.Tensor:
 def bernoulli(p, shape, like: torch.Tensor) -> torch.Tensor:
     """A bool draw of ``shape``, True with probability ``p`` (a float or a
     0-d tensor), on ``like``'s device; the next injected mask inside
-    ``injected_draws``."""
+    ``injected_draws``; inside ``draw_rows`` this shard's rows of the
+    global batch's draw."""
+    rows = _rows.get()
+    full = tuple(shape)
+    if rows is not None:
+        idx, n_global = rows
+        if shape[0] % len(idx):
+            raise ValueError(f"a draw of shape {tuple(shape)} over a shard of {len(idx)} rows")
+        k = shape[0] // len(idx)
+        full = (n_global * k,) + tuple(shape[1:])
     masks = _injected.get()
     if masks is not None:
         mask = next(masks)
-        if tuple(mask.shape) != tuple(shape):
-            raise ValueError(f"injected draw of shape {tuple(mask.shape)}, expected {tuple(shape)}")
-        return mask.to(device=like.device, dtype=torch.bool)
-    return _uniform(shape, like) < p
+        if tuple(mask.shape) != full:
+            raise ValueError(f"injected draw of shape {tuple(mask.shape)}, expected {full}")
+        mask = mask.to(device=like.device, dtype=torch.bool)
+    else:
+        mask = _uniform(full, like) < p
+    if rows is None:
+        return mask
+    keep = (idx.to(like.device)[:, None] * k + torch.arange(k, device=like.device)).reshape(-1)
+    return mask[keep]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -182,15 +216,20 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.init = init
         self.pointwise = k == 1 and stride == 1 and groups == 1
+        self.tp = None  # parallel.mesh.param_shardings: column-parallel over `model`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         w = self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         x = x.to(self.dtype)
         if self.pointwise:
-            return F.linear(x, w.flatten(1), b)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding, 1, self.groups)
-        return y.permute(0, 2, 3, 1)
+            y = F.linear(x, w.flatten(1), b)
+        else:
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding, 1,
+                         self.groups).permute(0, 2, 3, 1)
+        return y if self.tp is None else self.tp.leave(y)
 
 
 class Linear(nn.Module):
@@ -204,10 +243,14 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.dtype = dtype
         self.init = init
+        self.tp = None  # parallel.mesh.param_shardings: column-parallel over `model`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        return y if self.tp is None else self.tp.leave(y)
 
 
 INITS = {
@@ -279,8 +322,18 @@ class BatchNorm2d(FrozenBatchNorm):
             return super().forward(x)
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        group = data_group()
+        if group is None:
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        else:
+            # global-batch statistics: (sum x, sum x^2, count) over the data group
+            count = xf.new_full((1,), xf.numel() // xf.shape[-1])
+            s = all_reduce_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]),
+                               group)
+            c = xf.shape[-1]
+            mean = s[:c] / s[-1]
+            var = torch.clamp(s[c:2 * c] / s[-1] - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, BN_MOMENTUM)
             self.running_var.lerp_(var, BN_MOMENTUM)

@@ -20,23 +20,21 @@ import torch
 
 from ..checkpoint.io import CheckpointPolicy, has_checkpoint, load_variables, save_variables
 from ..core import rng as rng_mod
-from ..core.device import resolve_device
-from ..core.log import RunLogger
 from ..core.registry import models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
 from ..data.sampler import EpisodeSampler
 from ..data.staging import epoch_subset, gpu_budget_gb, needs_staging, upload_images
 from ..eval.episodic import evaluate, sample_episode_indices
 from ..heads import meta_baseline as _heads  # noqa: F401  (registers the heads)
+from ..parallel.mesh import param_shardings, use_mesh
 from .loop import make_meta_tune_epoch, metrics_mean
 from .runner import (
     build_dataset,
     build_optimizer,
-    check_single_device,
     load_encoder_from_checkpoint,
     model_dtype,
     parse_args,
-    save_dir_for,
+    start_run,
     visualize_datasets,
 )
 from .state import TrainState
@@ -57,10 +55,7 @@ def check_standard_episodic(head, name: str) -> None:
 
 
 def main(cfg, args) -> TrainState:
-    dev = resolve_device(args.device)
-    check_single_device(cfg)
-    logger = RunLogger(save_dir_for(cfg, args, f"meta_tune_{cfg.get('train_dataset')}"))
-    logger.log(f"config: {cfg.to_dict()}")
+    mesh, dev, logger = start_run(cfg, args, f"meta_tune_{cfg.get('train_dataset')}")
 
     train_ds = build_dataset(cfg, "train_dataset")
     val_ds = build_dataset(cfg, "val_dataset") or train_ds
@@ -72,6 +67,9 @@ def main(cfg, args) -> TrainState:
     shot = int(cfg.get("n_train_shot", cfg.get("n_shot", 1)))
     query = int(cfg.get("n_train_query", cfg.get("n_query", 15)))
     ep_per_batch = int(cfg.get("ep_per_batch", 4))
+    if mesh is not None and ep_per_batch % mesh.size("data"):
+        raise ValueError(f"ep_per_batch={ep_per_batch} must divide evenly over the mesh "
+                         f"data axis ({mesh.size('data')})")
     train_batches = int(cfg.get("train_batches", 100))
     epochs = int(cfg.get("max_epoch", 100))
 
@@ -92,6 +90,8 @@ def main(cfg, args) -> TrainState:
     else:
         logger.log("WARNING: no 'load_encoder': encoder randomly initialized")
 
+    if mesh is not None:  # column-parallel wide layers over `model` (none at size 1)
+        param_shardings(mesh, head)
     state = TrainState(head, build_optimizer(cfg, head.parameters()))
     epoch_fn = make_meta_tune_epoch(
         way, shot, query, ep_per_batch, freeze_bn=bool(cfg.get("freeze_bn", False)),
@@ -150,7 +150,7 @@ def main(cfg, args) -> TrainState:
         acc, ci, _ = evaluate(
             head, ds, n_episodes=n_episodes, way=n_way, shot=n_shot, query=n_query,
             ep_per_batch=ep_per_batch, seed=0, images_dev=images, indices=indices,
-            device=dev)
+            device=dev, mesh=mesh)
         return acc, ci
 
     for epoch in range(start_epoch, epochs + 1):
@@ -163,8 +163,9 @@ def main(cfg, args) -> TrainState:
             imgs_dev_e = torch.from_numpy(imgs_epoch).to(dev)
         else:
             imgs_dev_e = images_dev
-        ms = epoch_fn(state, imgs_dev_e, torch.from_numpy(idx.astype(np.int64)).to(dev),
-                      (args.seed, epoch))
+        with use_mesh(mesh):
+            ms = epoch_fn(state, imgs_dev_e, torch.from_numpy(idx.astype(np.int64)).to(dev),
+                          (args.seed, epoch))
         m = metrics_mean(ms)  # the fetch completes the epoch ...
         del imgs_dev_e        # ... so a staged subset can go before validation
         line = f"epoch {epoch} lr={lr:.3g} train loss={m['loss']:.4f} acc={m['acc']:.4f}"

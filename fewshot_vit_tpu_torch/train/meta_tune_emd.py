@@ -146,8 +146,9 @@ def make_emd_episode_fn(head, way: int, shot: int, query: int, patch_fn: Callabl
 
 
 def validate_episode_mesh(mesh_shape, grad_accum, ep_per_batch):
-    """The validator of ``mesh:`` episode parallelism, kept so that such a
-    config fails with the JAX package's words; the mesh itself is not ported."""
+    """The one validator of ``mesh:`` episode parallelism, shared by the CLI
+    (before it builds the mesh) and ``make_emd_epoch_fn``, with the JAX
+    package's words."""
     if grad_accum:
         raise ValueError(
             "mesh episode parallelism shards the vmapped task batch; it "
@@ -188,12 +189,21 @@ def make_emd_epoch_fn(episode_fn: Callable, labels: torch.Tensor, ep_per_batch: 
     own, ``zero_nan_tensor`` on the running sum, ``1 / bs`` at the end.
     Activation memory is that of one episode. Parameters a loss does not
     reach get a zero gradient, so weight decay still acts on them, as in the
-    JAX package."""
-    if mesh is not None:
-        validate_episode_mesh(dict(mesh), grad_accum, ep_per_batch)
-        from .runner import AUXILIARIES
+    JAX package.
 
-        raise NotImplementedError(f"mesh episode parallelism {AUXILIARIES}")
+    ``mesh`` (a ``parallel.Mesh``): episode parallelism, JAX's ``shard_map``
+    over ``data``. Each rank runs its contiguous block of the task batch's
+    episodes (each with its global episode index and draws) in the same
+    sequential form, and records per tensor whether its running sum met a
+    NaN. The flags are gathered, ``(data, n_tensors)``: a rank's masked sum
+    counts only where no later rank met a NaN in that tensor, which is
+    JAX's ``suffix_keep`` over the global episode order cut at rank
+    boundaries. The masked local sums are all-reduced and divided by
+    ``bs``; loss and accuracy are the global means. Every BN runs on its
+    running statistics here (``frozen_bn``), so nothing else crosses ranks."""
+    if mesh is not None:
+        validate_episode_mesh(dict(mesh.shape), grad_accum, ep_per_batch)
+    block = mesh.block(ep_per_batch) if mesh is not None else slice(0, ep_per_batch)
 
     def epoch(state: TrainState, images: torch.Tensor, idx: torch.Tensor,
               key: Sequence[int]) -> Dict[str, torch.Tensor]:
@@ -202,17 +212,22 @@ def make_emd_epoch_fn(episode_fn: Callable, labels: torch.Tensor, ep_per_batch: 
         ms = []
         for i, idx_b in enumerate(idx):
             sums = [torch.zeros_like(p) for p in params]
+            met_nan = torch.zeros(len(params), dtype=torch.bool, device=images.device)
             loss = torch.zeros((), device=images.device)
             acc = torch.zeros((), device=images.device)
-            for e, idx_e in enumerate(idx_b):
+            for e in range(ep_per_batch)[block]:
                 ep_id = (state.step * ep_per_batch) + e
-                logits = episode_fn(images[idx_e][None], [ep_id], key=(*key, i, e))[0].float()
+                logits = episode_fn(images[idx_b[e]][None], [ep_id], key=(*key, i, e))[0].float()
                 loss_e = F.cross_entropy(logits, labels)
                 grads = torch.autograd.grad(loss_e, params, allow_unused=True)
-                sums = [zero_nan_tensor(s if g is None else s + g)
-                        for s, g in zip(sums, grads)]
+                sums = [s if g is None else s + g for s, g in zip(sums, grads)]
+                if mesh is not None:
+                    met_nan |= torch.stack([torch.isnan(s).any() for s in sums])
+                sums = [zero_nan_tensor(s) for s in sums]
                 loss = loss + loss_e.detach()
                 acc = acc + compute_acc(logits.detach(), labels)
+            if mesh is not None:
+                sums, loss, acc = _reduce_episode_block(mesh, sums, met_nan, loss, acc)
             for p, s in zip(params, sums):
                 p.grad = s * inv
             state.optimizer.step()
@@ -221,6 +236,19 @@ def make_emd_epoch_fn(episode_fn: Callable, labels: torch.Tensor, ep_per_batch: 
         return stack_metrics(ms)
 
     return epoch
+
+
+def _reduce_episode_block(mesh, sums, met_nan, loss, acc):
+    """The cross-rank half of ``make_emd_epoch_fn``'s mesh form: gather the
+    per-tensor NaN flags, zero each tensor's local sum where a later rank
+    met a NaN, and sum sums, loss and accuracy over ``data``."""
+    flags = mesh.gather(met_nan[None])  # (data, n_tensors)
+    later = flags[mesh.index("data") + 1:].any(dim=0)
+    sums = [torch.where(drop, torch.zeros_like(s), s) for s, drop in zip(sums, later)]
+    flat = torch.cat([s.reshape(-1) for s in sums] + [loss.reshape(1), acc.reshape(1)])
+    mesh.all_reduce(flat)
+    parts = flat.split([s.numel() for s in sums] + [1, 1])
+    return [t.view_as(s) for t, s in zip(parts, sums)], parts[-2][0], parts[-1][0]
 
 
 def build_sund_optimizer(cfg, params) -> ScheduledOptimizer:
@@ -247,30 +275,25 @@ def interleaved(idx_flat: np.ndarray, n_ep: int, way: int, n_per: int) -> np.nda
 
 def main(cfg, args) -> TrainState:
     from ..checkpoint.io import CheckpointPolicy, has_checkpoint, load_variables, save_variables
-    from ..core.device import resolve_device
-    from ..core.log import RunLogger
     from ..core.registry import models
     from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
     from ..data.sampler import EpisodeSampler
     from ..data.staging import upload_images
     from ..eval.emd_eval import evaluate_emd, sample_emd_episode_indices
     from ..heads import deepemd as _heads  # noqa: F401  (registers the heads)
+    from ..parallel.mesh import barrier, param_shardings
     from .runner import (
         build_dataset,
-        check_single_device,
         load_encoder_from_checkpoint,
         model_dtype,
-        save_dir_for,
+        start_run,
         visualize_datasets,
     )
 
-    dev = resolve_device(args.device)
     if cfg.get("mesh"):
         validate_episode_mesh({k: int(v) for k, v in dict(cfg.get("mesh")).items()},
                               bool(cfg.get("grad_accum", False)), int(cfg.get("bs", 1)))
-    check_single_device(cfg)
-    logger = RunLogger(save_dir_for(cfg, args, f"sund_{cfg.get('train_dataset')}"))
-    logger.log(f"config: {cfg.to_dict()}")
+    mesh, dev, logger = start_run(cfg, args, f"sund_{cfg.get('train_dataset')}")
 
     train_ds = build_dataset(cfg, "train_dataset")
     val_ds = build_dataset(cfg, "val_dataset") or train_ds
@@ -303,6 +326,8 @@ def main(cfg, args) -> TrainState:
 
     epochs = int(cfg.get("max_epoch", 100))
     train_batches = int(cfg.get("train_batches", 50))
+    if mesh is not None:  # column-parallel wide layers over `model` (none at size 1)
+        param_shardings(mesh, head)
     state = TrainState(head, build_sund_optimizer(cfg, head.parameters()))
 
     patch_kw = dict(patch_list=cfg.get("patch_list", [2, 3]),
@@ -319,7 +344,7 @@ def main(cfg, args) -> TrainState:
     labels = torch.arange(way, device=dev).repeat(query)
     images_dev = upload_images(train_ds.images, dev)
     epoch_fn = make_emd_epoch_fn(episode_fn, labels, ep_per_batch,
-                                 grad_accum=bool(cfg.get("grad_accum", False)))
+                                 grad_accum=bool(cfg.get("grad_accum", False)), mesh=mesh)
     # do not hold the images twice when validating on the train split
     val_images = images_dev if val_ds is train_ds else upload_images(val_ds.images, dev)
 
@@ -336,7 +361,7 @@ def main(cfg, args) -> TrainState:
             cached=cached, indices=indices, patch_list=patch_kw["patch_list"],
             patch_ratio=patch_kw["patch_ratio"], image_size=img,
             num_patch=patch_kw["num_patch"], sfc_kw=sfc_kw, images_dev=images,
-            seed=args.seed, device=dev)
+            seed=args.seed, device=dev, mesh=mesh)
 
     train_sampler = EpisodeSampler(train_ds.labels, train_batches, way, shot + query,
                                    ep_per_batch)
@@ -382,6 +407,7 @@ def main(cfg, args) -> TrainState:
     # protocol, append results.txt
     test_episodes = int(cfg.get("test_episode", 2000 if shot == 1 else 600))
     best_dir = os.path.join(logger.save_dir, "max-va")
+    barrier()  # rank 0 wrote max-va
     if test_episodes and has_checkpoint(best_dir):
         best_vars, best_meta = load_variables(best_dir, map_location=dev)
         last_vars = {k: v.clone() for k, v in head.state_dict().items()}
@@ -402,8 +428,9 @@ def main(cfg, args) -> TrainState:
         ]
         logger.log(f"final test {way}w{shot}s ({test_episodes} episodes): "
                    f"acc={m_t * 100:.2f} +- {ci_t * 100:.2f} (%)")
-        with open(os.path.join(logger.save_dir, "results.txt"), "a") as f:
-            f.write("\n".join(lines) + "\n")
+        if logger.writes:
+            with open(os.path.join(logger.save_dir, "results.txt"), "a") as f:
+                f.write("\n".join(lines) + "\n")
     return state
 
 

@@ -101,18 +101,35 @@ def zero_nan_tensor(g: torch.Tensor) -> torch.Tensor:
 
 
 def zero_nan_grads(params: Iterable[torch.Tensor]) -> None:
-    """``zero_nan_tensor`` on every ``.grad``, in place, without a host sync."""
+    """``zero_nan_tensor`` on every ``.grad``, in place, without a host sync;
+    a column-parallel parameter's slices are zeroed together when any of
+    them holds a NaN, as the whole tensor is."""
     for p in params:
-        if p.grad is not None:
+        if p.grad is None:
+            continue
+        tp = getattr(p, "tp", None)
+        if tp is None:
             p.grad = zero_nan_tensor(p.grad)
+        else:
+            from ..parallel.mesh import reduce_sum_
+
+            bad = reduce_sum_(torch.isnan(p.grad).any().reshape(1), tp.group)
+            p.grad = torch.where(bad, torch.zeros_like(p.grad), p.grad)
 
 
 def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> None:
     """Scale every ``.grad`` by ``max_norm / max(norm, max_norm)``, the global
-    L2 norm over all of them (optax ``clip_by_global_norm``)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
-                                                 for g in grads]))
+    L2 norm over all of them (optax ``clip_by_global_norm``), taken over the
+    whole of every column-parallel parameter (``parallel.mesh``)."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    if any(getattr(p, "tp", None) is not None for p in params):
+        from ..parallel.mesh import global_sq_norm
+
+        norm = torch.sqrt(global_sq_norm(grads, params))
+    else:
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
+                                                     for g in grads]))
     scale = max_norm / torch.clamp(norm, min=max_norm)
     for g in grads:
         g.mul_(scale)

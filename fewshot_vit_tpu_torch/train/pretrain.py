@@ -28,23 +28,21 @@ import torch
 
 from ..checkpoint.io import CheckpointPolicy, has_checkpoint, save_variables
 from ..core import rng as rng_mod
-from ..core.device import resolve_device
-from ..core.log import RunLogger
 from ..core.registry import models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
 from ..data.staging import EpochStager, gpu_budget_gb, needs_staging, upload_images
 from ..heads import classifier as _heads  # noqa: F401  (registers the heads)
+from ..parallel.mesh import param_shardings, use_mesh
 from .loop import batch_indices, eval_metrics, make_eval_ce_epoch, make_pretrain_epoch, metrics_mean
 from .runner import (
     build_dataset,
     build_optimizer,
-    check_single_device,
     emd_fs_eval,
     fs_eval,
     model_dtype,
     parse_args,
     profile_epoch,
-    save_dir_for,
+    start_run,
     visualize_augmented,
     visualize_datasets,
 )
@@ -52,10 +50,7 @@ from .state import TrainState, resume_train_state
 
 
 def main(cfg, args) -> TrainState:
-    dev = resolve_device(args.device)
-    check_single_device(cfg)
-    logger = RunLogger(save_dir_for(cfg, args, f"pretrain_{cfg.get('train_dataset')}"))
-    logger.log(f"config: {cfg.to_dict()}")
+    mesh, dev, logger = start_run(cfg, args, f"pretrain_{cfg.get('train_dataset')}")
 
     train_ds = build_dataset(cfg, "train_dataset")
     val_ds = build_dataset(cfg, "val_dataset")
@@ -80,6 +75,8 @@ def main(cfg, args) -> TrainState:
     epochs = int(cfg.get("max_epoch", 100))
     # the reference's ModelEma, opt-in: `ema_decay: 0.9997`
     ema_decay = float(cfg.get("ema_decay", 0) or 0)
+    if mesh is not None:  # column-parallel wide layers over `model` (none at size 1)
+        param_shardings(mesh, model)
     state = TrainState(model, build_optimizer(cfg, model.parameters(), batch_size),
                        ema=bool(ema_decay))
 
@@ -159,7 +156,7 @@ def main(cfg, args) -> TrainState:
     for epoch in range(start_epoch, epochs + 1):
         t0 = time.time()
         state.optimizer.set_epoch(epoch - 1)
-        with profile_epoch(args, epoch):
+        with profile_epoch(args, epoch), use_mesh(mesh):
             m = run_epoch(epoch_fn, epoch)
         line = f"epoch {epoch} train loss={m['loss']:.4f} acc={m['acc']:.4f}"
 
@@ -171,7 +168,7 @@ def main(cfg, args) -> TrainState:
 
         if fs_ds is not None and eval_fs_epoch and epoch % eval_fs_epoch == 0:
             fm = fs_eval(model.encoder, fs_ds, n_episodes=int(cfg.get("eval_fs_episodes", 200)),
-                         images_dev=fs_images)
+                         images_dev=fs_images, mesh=mesh)
             if cfg.get("eval_emd"):
                 # SUN-D-style DeepEMD-episode validation during CE pretraining
                 fm.update(emd_fs_eval(
@@ -182,7 +179,7 @@ def main(cfg, args) -> TrainState:
 
         ema_va = None
         if ema_policy is not None:
-            ema_model.load_state_dict(state.ema_variables)
+            ema_model.load_state_dict({**model.state_dict(), **state.ema_params})
             if eval_fn is not None:
                 ema_va = val_ce(ema_model)["acc"]
                 line += f" | ema val acc={ema_va:.4f}"
@@ -202,7 +199,8 @@ def main(cfg, args) -> TrainState:
         plain_fn = make_pretrain_epoch(None, train_ds.mean, train_ds.std,
                                        ema_decay=ema_decay or None, remat=remat, **sam_kw)
         state.optimizer.set_epoch(epochs)
-        m = run_epoch(plain_fn, epochs + 1)
+        with use_mesh(mesh):
+            m = run_epoch(plain_fn, epochs + 1)
         logger.log(f"epoch-ex train loss={m['loss']:.4f} acc={m['acc']:.4f}")
         save_variables(os.path.join(logger.save_dir, "epoch-ex"), state.variables,
                        {**meta, "epoch": "ex"})

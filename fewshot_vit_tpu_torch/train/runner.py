@@ -22,8 +22,11 @@ from ..checkpoint.reference import (
 )
 from ..core import rng as rng_mod
 from ..core.config import Config, load_config
+from ..core.device import resolve_device
+from ..core.log import RunLogger
 from ..core.registry import datasets
 from ..data.datasets import ArrayDataset
+from ..parallel.mesh import init_distributed, is_main_process, make_mesh, world_size
 from .optim import (
     ScheduledOptimizer,
     make_optimizer,
@@ -31,10 +34,6 @@ from .optim import (
     timm_cosine_schedule,
     timm_multistep_schedule,
 )
-
-AUXILIARIES = ("comes with the mesh, the last part of the auxiliaries slice "
-               "(ROADMAP.md, item f.4 of the order list)")
-
 
 def parse_args(description: str, argv=None) -> Tuple[Config, argparse.Namespace]:
     p = argparse.ArgumentParser(description=description)
@@ -48,7 +47,13 @@ def parse_args(description: str, argv=None) -> Tuple[Config, argparse.Namespace]
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of epoch 2 here")
     args = p.parse_args(argv)
-    return load_config(args.config), args
+    cfg = load_config(args.config)
+    if cfg.get("distributed"):
+        # one process per device: join the group before anything touches a card
+        n = init_distributed(**dict(cfg.get("distributed_args", {}) or {}), device=args.device)
+        if is_main_process():
+            print(f"torch.distributed: {n} processes", flush=True)
+    return cfg, args
 
 
 def profile_epoch(args: argparse.Namespace, epoch: int):
@@ -58,7 +63,7 @@ def profile_epoch(args: argparse.Namespace, epoch: int):
     import contextlib
 
     profile_dir = getattr(args, "profile_dir", None)
-    if not (profile_dir and epoch == 2):
+    if not (profile_dir and epoch == 2 and is_main_process()):
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
 
@@ -76,12 +81,33 @@ def profile_epoch(args: argparse.Namespace, epoch: int):
     return traced()
 
 
-def check_single_device(cfg: Config) -> None:
-    """Refuse, by name, the keys of the JAX configs that are not ported:
-    every trainer's ``main`` calls this before it builds anything."""
-    for key in ("distributed", "mesh"):
-        if cfg.get(key):
-            raise NotImplementedError(f"'{key}:' (multi-device training) {AUXILIARIES}")
+def mesh_from_cfg(cfg: Config, device):
+    """The config's ``mesh: {data: D, model: M}`` as a ``parallel.Mesh`` over
+    the process group (joined from ``torchrun``'s environment when it is not
+    yet), or None without ``mesh:``. The world size must be D*M: a config
+    with ``mesh:`` started as one process raises unless D*M is 1, and
+    several processes without ``mesh:`` raise too. Rank 0 logs the world
+    size, the axes, the devices and the backend (``start_run``)."""
+    shape = cfg.get("mesh")
+    if not shape:
+        init_distributed(device=device)
+        if world_size() > 1:
+            raise ValueError(f"{world_size()} processes but no 'mesh:' in the config: "
+                             "every process would run the whole job")
+        return None
+    return make_mesh({k: int(v) for k, v in dict(shape).items()}, device)
+
+
+def start_run(cfg: Config, args: argparse.Namespace, default_name: str):
+    """A trainer's first step: (mesh or None, this rank's device, the run's
+    logger). The device is checked before the run directory is made."""
+    mesh = mesh_from_cfg(cfg, args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    logger = RunLogger(save_dir_for(cfg, args, default_name))
+    logger.log(f"config: {cfg.to_dict()}")
+    if mesh is not None:
+        logger.log(mesh.describe())
+    return mesh, dev, logger
 
 
 def visualize_datasets(logger, cfg: Config, **named_datasets) -> None:
@@ -239,12 +265,16 @@ def resolve_checkpoint(cfg: Config, head: nn.Module, encoder_name: str) -> Optio
 
 def fs_eval(encoder: nn.Module, dataset: ArrayDataset, n_episodes: int = 200, way: int = 5,
             shots=(1, 5), query: int = 15, ep_per_batch: int = 8, seed: int = 0,
-            images_dev: Optional[torch.Tensor] = None) -> Dict[str, float]:
+            images_dev: Optional[torch.Tensor] = None, mesh=None) -> Dict[str, float]:
     """Few-shot validation during training: ``fsa-<shot>`` accuracies of a
     MetaBaseline at the fixed temperature 10 around ``encoder`` itself (in
     eval mode; the JAX package assembles the same view's variables in
     ``fs_head_variables``) on fixed-seed episodes, through
-    ``eval.episodic.evaluate`` on the encoder's device."""
+    ``eval.episodic.evaluate`` on the encoder's device; episode-parallel
+    over ``mesh``'s ``data`` axis when it divides ``ep_per_batch``, else
+    whole on every rank (the same accuracies either way)."""
+    if mesh is not None and ep_per_batch % mesh.size("data"):
+        mesh = None
     from ..eval.episodic import evaluate
     from ..heads.meta_baseline import MetaBaseline
 
@@ -254,7 +284,7 @@ def fs_eval(encoder: nn.Module, dataset: ArrayDataset, n_episodes: int = 200, wa
     for shot in shots:
         acc, _, _ = evaluate(head, dataset, n_episodes=n_episodes, way=way, shot=shot,
                              query=query, ep_per_batch=ep_per_batch, seed=seed,
-                             images_dev=images_dev, device=device)
+                             images_dev=images_dev, device=device, mesh=mesh)
         out[f"fsa-{shot}"] = acc
     return out
 

@@ -19,12 +19,13 @@ import torch.nn.functional as F
 
 from ..data.transforms import MEAN, STD
 from ..ops.metric import compute_acc
+from ..parallel.mesh import global_sq_norm, local_block, mean_metrics, sync_tensors
 from .state import TrainState
 from .steps import kept_bn_stats, step_inputs, train_forward
 
 
-def _global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+def _global_norm(tensors: Sequence[torch.Tensor], params) -> torch.Tensor:
+    return torch.sqrt(global_sq_norm(tensors, params))
 
 
 def sam_gradient(loss_fn: Callable[[bool], Tuple[torch.Tensor, object]],
@@ -34,19 +35,23 @@ def sam_gradient(loss_fn: Callable[[bool], Tuple[torch.Tensor, object]],
 
     ``loss_fn(first)`` computes ``(loss, aux)`` from the parameters' current
     values; ``first`` is False in pass 2. The parameters are perturbed in
-    place for pass 2 and restored exactly afterwards."""
+    place for pass 2 and restored exactly afterwards. Under a mesh both
+    passes' gradients are averaged over its ``data`` axis, and the norms
+    are global."""
     def grads_of(loss):
         gs = torch.autograd.grad(loss, params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+        gs = [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+        sync_tensors(gs)
+        return gs
 
     out1 = loss_fn(True)
     g1 = grads_of(out1[0])
     with torch.no_grad():
         if adaptive:
-            scale = rho / (_global_norm([p.abs() * g for p, g in zip(params, g1)]) + 1e-12)
+            scale = rho / (_global_norm([p.abs() * g for p, g in zip(params, g1)], params) + 1e-12)
             e_w = [scale * (p * p) * g for p, g in zip(params, g1)]
         else:
-            scale = rho / (_global_norm(g1) + 1e-12)
+            scale = rho / (_global_norm(g1, params) + 1e-12)
             e_w = [scale * g for g in g1]
         original = [p.detach().clone() for p in params]
         for p, e in zip(params, e_w):
@@ -67,7 +72,7 @@ def make_sam_pretrain_step(rho: float = 0.05, adaptive: bool = False, preprocess
 
     def step(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor, key):
         x = step_inputs(images_u8, key, preprocess_fn, mean, std)
-        labels = labels.long()
+        labels = local_block(labels.long())
         model = state.module.train()
         params = [p for p in model.parameters() if p.requires_grad]
 
@@ -81,6 +86,7 @@ def make_sam_pretrain_step(rho: float = 0.05, adaptive: bool = False, preprocess
             p.grad = g
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "acc": compute_acc(logits.detach(), labels)}
+        return mean_metrics({"loss": loss.detach(),
+                             "acc": compute_acc(logits.detach(), labels)})
 
     return step

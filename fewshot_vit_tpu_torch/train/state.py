@@ -8,6 +8,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_gather, gathered_state_dict, map_optimizer_state, sliced_state_dict
 from .optim import ScheduledOptimizer
 
 
@@ -22,7 +23,10 @@ def ema_update(ema_params: Dict[str, torch.Tensor], module: nn.Module,
 class TrainState:
     """``module`` + ``optimizer`` + ``step`` (+ ``ema_params`` when
     ``ema=True``: detached copies of the parameters, by name).
-    ``state_dict()`` / ``load_state_dict()`` carry all of it, for resume."""
+    ``state_dict()`` / ``load_state_dict()`` carry all of it, for resume.
+    A module with column-parallel layers (``parallel.param_shardings``)
+    holds slices; every view here is in the full layout (gathered, a
+    collective every rank calls), and a loaded state is cut to the slices."""
 
     def __init__(self, module: nn.Module, optimizer: ScheduledOptimizer, ema: bool = False):
         self.module = module
@@ -34,31 +38,38 @@ class TrainState:
     @property
     def variables(self) -> Dict[str, torch.Tensor]:
         """The module's state dict: parameters and BN running statistics."""
-        return self.module.state_dict()
+        return gathered_state_dict(self.module)
 
     @property
     def ema_variables(self) -> Dict[str, torch.Tensor]:
         """The module's state dict with the EMA shadow in place of the
         parameters (the BN statistics are the live ones, as in the JAX
         package)."""
-        return {**self.module.state_dict(), **self.ema_params}
+        return gathered_state_dict(self.module, {**self.module.state_dict(), **self.ema_params})
 
     def ema_update(self, decay: float = 0.9997) -> None:
         ema_update(self.ema_params, self.module, decay)
 
     def state_dict(self) -> dict:
-        out = {"step": self.step, "model": self.module.state_dict(),
-               "optimizer": self.optimizer.state_dict()}
+        gather = lambda t, tp: all_gather(t, tp.group, tp.size, dim=0)
+        out = {"step": self.step, "model": self.variables,
+               "optimizer": map_optimizer_state(self.optimizer.optimizer,
+                                                self.optimizer.state_dict(), gather)}
         if self.ema_params is not None:
-            out["ema_params"] = self.ema_params
+            out["ema_params"] = gathered_state_dict(self.module, self.ema_params)
         return out
 
     def load_state_dict(self, state: dict) -> None:
-        self.module.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        def cut(t, tp):
+            w = tp.full_out // tp.size
+            return t[tp.index * w:(tp.index + 1) * w] if t.shape[0] == tp.full_out else t
+
+        self.module.load_state_dict(sliced_state_dict(self.module, state["model"]))
+        self.optimizer.load_state_dict(
+            map_optimizer_state(self.optimizer.optimizer, state["optimizer"], cut))
         self.step = int(state["step"])
         if self.ema_params is not None and "ema_params" in state:
-            for name, t in state["ema_params"].items():
+            for name, t in sliced_state_dict(self.module, state["ema_params"]).items():
                 self.ema_params[name].copy_(t)
 
 

@@ -9,6 +9,14 @@ A step takes uint8 device batches, an integer ``key`` (seed, epoch, step)
 that seeds its generators (``core.rng.torch_generator``), runs one forward
 in training mode, one backward and one optimizer step, and returns its
 metrics as 0-d device tensors: nothing here waits for the card.
+
+Under ``parallel.use_mesh(mesh)`` a step takes the GLOBAL batch, runs the
+augmentation on all of it with the one generator every rank seeds alike,
+keeps this rank's contiguous block (``local_block``), draws its dropout and
+drop-path masks as this block's rows of the global draw (``shard_rows``),
+normalizes with global-batch BN statistics, averages the gradients over the
+``data`` axis before the optimizer step and returns the global batch's
+metrics: the step of every rank equals the unsharded step.
 """
 
 from __future__ import annotations
@@ -22,10 +30,11 @@ from torch import nn
 
 from ..core.rng import torch_generator
 from ..data.transforms import MEAN, STD, normalize
-from ..models.common import draws_from, frozen_bn
+from ..models.common import draw_rows, draws_from, frozen_bn
 from ..ops.episodes import make_nk_label
 from ..ops.metric import compute_acc
 from ..ops.token_label import generate_soft_label, soft_target_cross_entropy
+from ..parallel.mesh import local_block, mean_metrics, shard_rows, sync_tensors
 from .state import TrainState
 
 
@@ -54,8 +63,10 @@ def train_forward(module: nn.Module, x: torch.Tensor, key: Sequence[int],
     generator re-seeded so both passes draw the same masks (the caller keeps
     the BN statistics of the first pass with ``kept_bn_stats``)."""
 
+    rows = shard_rows(x.shape[0])
+
     def fwd(x):
-        with draws_from(torch_generator(x.device, *key)):
+        with draws_from(torch_generator(x.device, *key)), draw_rows(*rows):
             return module(x, **kwargs)
 
     if remat:
@@ -67,16 +78,17 @@ def train_forward(module: nn.Module, x: torch.Tensor, key: Sequence[int],
 
 def step_inputs(images_u8: torch.Tensor, key: Sequence[int], preprocess_fn, mean, std):
     """The augmentation pipeline with its generator (seed, epoch, step, 7), or
-    plain normalization."""
+    plain normalization; under a mesh, this rank's block of the result."""
     if preprocess_fn is not None:
-        return preprocess_fn(images_u8, torch_generator(images_u8.device, *key, 7))
-    return normalize(images_u8, mean, std)
+        return local_block(preprocess_fn(images_u8, torch_generator(images_u8.device, *key, 7)))
+    return normalize(local_block(images_u8), mean, std)
 
 
 def _backward_and_update(state: TrainState, loss: torch.Tensor, remat: bool) -> None:
     state.optimizer.zero_grad()
     with kept_bn_stats(state.module) if remat else contextlib.nullcontext():
         loss.backward()
+    sync_tensors([p.grad for p in state.module.parameters()])
     state.optimizer.step()
     state.step += 1
 
@@ -94,14 +106,15 @@ def make_pretrain_step(
     def step(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor,
              key: Sequence[int]) -> Dict[str, torch.Tensor]:
         x = step_inputs(images_u8, key, preprocess_fn, mean, std)
-        labels = labels.long()
+        labels = local_block(labels.long())
         state.module.train()
         logits = train_forward(state.module, x, key, remat)
         loss = F.cross_entropy(logits.float(), labels)
         _backward_and_update(state, loss, remat)
         if state.ema_params is not None and ema_decay:
             state.ema_update(ema_decay)
-        return {"loss": loss.detach(), "acc": compute_acc(logits.detach(), labels)}
+        return mean_metrics({"loss": loss.detach(),
+                             "acc": compute_acc(logits.detach(), labels)})
 
     return step
 
@@ -153,15 +166,18 @@ def make_sun_step(
              key: Sequence[int]) -> Dict[str, torch.Tensor]:
         if dual_view_fn is not None:
             xs, xw = dual_view_fn(strong_u8, torch_generator(strong_u8.device, *key, 7))
+            xs, xw = local_block(xs), local_block(xw)
         else:
-            xs, xw = normalize(strong_u8, mean, std), normalize(weak_u8, mean, std)
-        labels = labels.long()
+            xs = normalize(local_block(strong_u8), mean, std)
+            xw = normalize(local_block(weak_u8), mean, std)
+        labels = local_block(labels.long())
         soft = sun_targets(teacher, xw, smoothing, soft_k, bg_tokens)
         loss, cls_loss, token_loss, y = sun_loss(state.module, xs, labels, soft, key,
                                                  token_weight, remat)
         _backward_and_update(state, loss, remat)
-        return {"loss": loss.detach(), "cls_loss": cls_loss.detach(),
-                "token_loss": token_loss.detach(), "acc": compute_acc(y.detach(), labels)}
+        return mean_metrics({"loss": loss.detach(), "cls_loss": cls_loss.detach(),
+                             "token_loss": token_loss.detach(),
+                             "acc": compute_acc(y.detach(), labels)})
 
     return step
 
@@ -185,26 +201,30 @@ def make_meta_tune_step(
     def step(state: TrainState, x_shot_u8: torch.Tensor, x_query_u8: torch.Tensor,
              key: Sequence[int]) -> Dict[str, torch.Tensor]:
         head, dev = state.module, x_shot_u8.device
-        labels = make_nk_label(way, query, ep_per_batch, device=dev).reshape(-1)
         if preprocess_fn is not None:
             img = x_shot_u8.shape[3:]
             xs = preprocess_fn(x_shot_u8.reshape(-1, *img), torch_generator(dev, *key, 7))
-            xs = xs.reshape(*x_shot_u8.shape[:3], *xs.shape[1:])
+            xs = local_block(xs.reshape(*x_shot_u8.shape[:3], *xs.shape[1:]))
             xq = preprocess_fn(x_query_u8.reshape(-1, *img), torch_generator(dev, *key, 7, 1))
-            xq = xq.reshape(*x_query_u8.shape[:2], *xq.shape[1:])
+            xq = local_block(xq.reshape(*x_query_u8.shape[:2], *xq.shape[1:]))
         else:
-            xs = normalize(x_shot_u8, mean, std)
-            xq = normalize(x_query_u8, mean, std)
+            xs = normalize(local_block(x_shot_u8), mean, std)
+            xq = normalize(local_block(x_query_u8), mean, std)
+        labels = make_nk_label(way, query, xs.shape[0], device=dev).reshape(-1)
         head.train()
-        with draws_from(torch_generator(dev, *key)), \
+        # the head encodes cat(shots, queries): each segment is this rank's block
+        rows = shard_rows(xs.shape[0] * xs.shape[1] * xs.shape[2], xq.shape[0] * xq.shape[1])
+        with draws_from(torch_generator(dev, *key)), draw_rows(*rows), \
                 (frozen_bn() if freeze_bn else contextlib.nullcontext()):
             logits = head(xs, xq)
         logits = logits.reshape(-1, way).float()
         loss = F.cross_entropy(logits, labels)
         state.optimizer.zero_grad()
         loss.backward()
+        sync_tensors([p.grad for p in head.parameters()])
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "acc": compute_acc(logits.detach(), labels)}
+        return mean_metrics({"loss": loss.detach(),
+                             "acc": compute_acc(logits.detach(), labels)})
 
     return step

@@ -29,21 +29,19 @@ from torch import nn
 
 from ..checkpoint.io import CheckpointPolicy, has_checkpoint, load_variables, save_variables
 from ..core import rng as rng_mod
-from ..core.device import resolve_device
-from ..core.log import RunLogger
 from ..core.registry import models
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
 from ..data.staging import upload_images
 from ..heads import token_label as _heads  # noqa: F401  (registers the heads)
+from ..parallel.mesh import param_shardings, use_mesh
 from .loop import batch_indices, make_sun_epoch, metrics_mean
 from .runner import (
     build_dataset,
     build_optimizer,
-    check_single_device,
     fs_eval,
     model_dtype,
     parse_args,
-    save_dir_for,
+    start_run,
     visualize_augmented,
     visualize_datasets,
 )
@@ -68,10 +66,7 @@ def assemble_teacher_variables(model: nn.Module, classifier_ckpt: Mapping[str, t
 
 
 def main(cfg, args) -> TrainState:
-    dev = resolve_device(args.device)
-    check_single_device(cfg)
-    logger = RunLogger(save_dir_for(cfg, args, f"sun_{cfg.get('train_dataset')}"))
-    logger.log(f"config: {cfg.to_dict()}")
+    mesh, dev, logger = start_run(cfg, args, f"sun_{cfg.get('train_dataset')}")
 
     train_ds = build_dataset(cfg, "train_dataset")
     fs_ds = build_dataset(cfg, "fs_dataset")
@@ -101,6 +96,8 @@ def main(cfg, args) -> TrainState:
     else:
         logger.log("WARNING: no 'load' checkpoint — teacher is randomly initialized")
     teacher.requires_grad_(False).eval()
+    if mesh is not None:  # the student's wide layers over `model`; the teacher stays whole
+        param_shardings(mesh, student)
 
     batch_size = int(cfg.get("batch_size", 512))
     epochs = int(cfg.get("max_epoch", 100))
@@ -139,8 +136,9 @@ def main(cfg, args) -> TrainState:
         t0 = time.time()
         state.optimizer.set_epoch(epoch - 1)
         idx = batch_indices(len(train_ds), batch_size, rng_mod.np_rng(args.seed, epoch))
-        ms = epoch_fn(state, teacher, images_dev, labels_dev,
-                      torch.from_numpy(idx.astype(np.int64)).to(dev), (args.seed, epoch))
+        with use_mesh(mesh):
+            ms = epoch_fn(state, teacher, images_dev, labels_dev,
+                          torch.from_numpy(idx.astype(np.int64)).to(dev), (args.seed, epoch))
         m = metrics_mean(ms)
         line = (f"epoch {epoch} loss={m['loss']:.4f} cls={m['cls_loss']:.4f} "
                 f"token={m['token_loss']:.4f} acc={m['acc']:.4f}")
@@ -148,7 +146,7 @@ def main(cfg, args) -> TrainState:
         va = None
         if fs_ds is not None and eval_fs_epoch and epoch % eval_fs_epoch == 0:
             fm = fs_eval(student.encoder, fs_ds, n_episodes=int(cfg.get("eval_fs_episodes", 200)),
-                         images_dev=fs_images)
+                         images_dev=fs_images, mesh=mesh)
             va = fm.get("fsa-1")
             line += " | " + " ".join(f"{k}={v:.4f}" for k, v in fm.items())
             logger.metrics(epoch, **fm)

@@ -162,12 +162,17 @@ def test_roc_auc_matches_jax(scores, labels):
 
 
 def test_eval_refuses_unported_flags(setup):
-    """``--mesh-data`` waits for the mesh; ``--int8`` is ported
+    """``--mesh-data`` is ported (``tests/test_torch_mesh.py``) and keeps
+    JAX's checks: one process is no mesh of 4, and the flag is refused with
+    ``--cached`` or ``--sauc``; ``--int8`` is ported
     (``tests/test_torch_quant.py`` holds it to the JAX CLI)."""
     _, _, paths, tmp = setup
     cfg = _eval_cfg(tmp, "flags", f"load: {paths['head_pth']}\n")
-    with pytest.raises(NotImplementedError, match=r"auxiliaries slice.*item f\.4"):
+    with pytest.raises(ValueError, match=r"mesh \{'data': 4\} needs 4 devices, have 1"):
         run.main(["--config", cfg, "--device", "cpu", "--mesh-data", "4"])
+    for flag in ("--cached", "--sauc"):
+        with pytest.raises(SystemExit):
+            run.main(["--config", cfg, "--device", "cpu", "--mesh-data", "4", flag])
 
 
 def _emd_cfg(tmp, name, mode, load_line):

@@ -50,7 +50,10 @@ def test_scan_covers_the_port():
             # solver: exact, the research heads, the visualization paths
             "emd.py", "meta_token.py", "visualize.py",
             # int8, the export, the watchdog
-            "quant.py", "export.py", "watchdog.py"} <= names
+            "quant.py", "export.py", "watchdog.py",
+            # the mesh
+            "mesh.py"} <= names
+    assert (ROOT / "fewshot_vit_tpu_torch" / "parallel" / "__init__.py") in _port_files()
     assert (ROOT / "fewshot_vit_tpu_torch" / "native" / "emd_solver.cpp").is_file()
     assert (ROOT / "fewshot_vit_tpu_torch" / "utils" / "__init__.py") in _port_files()
     assert len([p for p in _port_files() if p.name == "token_label.py"]) == 2  # ops and heads
@@ -225,21 +228,27 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 
 def test_the_rest_of_the_auxiliaries_refuse_by_name(tmp_path):
-    """``mesh:``, ``distributed:``, ``--mesh-data`` and ``eval.export
-    --data-shards`` wait for the mesh (item f.4) and say so;
-    ``visualize_datasets:``, ``--int8`` and ``eval.export`` no longer
-    refuse."""
+    """The mesh is ported: ``mesh:`` builds a ``parallel.Mesh`` when the
+    world size is its size and refuses any other with JAX's words (one
+    process here: only a size-1 mesh runs), ``distributed:`` is a no-op for
+    one process, ``--mesh-data`` and ``eval.export --data-shards`` take the
+    same checks; ``visualize_datasets:``, ``--int8`` and ``eval.export`` no
+    longer refuse."""
     from fewshot_vit_tpu_torch.core.config import Config
     from fewshot_vit_tpu_torch.eval import export
+    from fewshot_vit_tpu_torch.parallel.mesh import init_distributed
 
-    for key in ("mesh", "distributed"):
-        with pytest.raises(NotImplementedError, match=r"item f\.4 of the order list"):
-            runner.check_single_device(Config({key: {"data": 4}}))
-    runner.check_single_device(Config({"visualize_datasets": True}))
+    with pytest.raises(ValueError, match=r"mesh \{'data': 4\} needs 4 devices, have 1"):
+        runner.mesh_from_cfg(Config({"mesh": {"data": 4}}), "cpu")
+    mesh = runner.mesh_from_cfg(Config({"mesh": {"data": 1, "model": 1}}), "cpu")
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.device == torch.device("cpu")
+    assert runner.mesh_from_cfg(Config({"visualize_datasets": True}), "cpu") is None
+    assert init_distributed() == 1
     cfg = tmp_path / "c.yaml"
     cfg.write_text("dataset: synthetic\n")
-    with pytest.raises(NotImplementedError, match=r"item f\.4 of the order list"):
+    with pytest.raises(ValueError, match=r"mesh \{'data': 2\} needs 2 devices, have 1"):
         run.main(["--config", str(cfg), "--device", "cpu", "--mesh-data", "2"])
-    with pytest.raises(NotImplementedError, match=r"'--data-shards'.*item f\.4 of the order list"):
-        export.main(["--config", str(cfg), "--out", str(tmp_path / "a.pt2"), "--data-shards", "2"])
+    with pytest.raises(ValueError, match="ep_per_batch=1 must divide over data_shards=2"):
+        export.main(["--config", str(cfg), "--out", str(tmp_path / "a.pt2"), "--data-shards", "2",
+                     "--device", "cpu"])
     assert not (tmp_path / "a.pt2").exists()

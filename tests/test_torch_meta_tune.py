@@ -225,9 +225,9 @@ def test_cli_writes_the_dataset_grids(tmp_path):
 def test_cli_refuses_multi_device_keys_and_a_missing_card(tmp_path, monkeypatch):
     cfg = tmp_path / "c.yaml"
     argv = ["--config", str(cfg), "--save-root", str(tmp_path / "s"), "--device", "cpu"]
-    for key in ("mesh: {data: 4}", "distributed: true"):
+    for key in ("mesh: {data: 4}", "distributed: true\nmesh: {data: 4}"):
         cfg.write_text(CLI_CONFIG % (1, key))
-        with pytest.raises(NotImplementedError, match="auxiliaries slice"):
+        with pytest.raises(ValueError, match=r"mesh \{'data': 4\} needs 4 devices, have 1"):
             meta_tune.main(*parse_args("test", argv))
     assert not (tmp_path / "s").exists()  # refused before a run directory is made
     cfg.write_text(CLI_CONFIG % (1, ""))

@@ -304,9 +304,9 @@ def test_cli_writes_the_dataset_and_augmentation_grids(tmp_path):
 
 def test_cli_defaults_to_the_card_and_refuses_auxiliaries(tmp_path, monkeypatch):
     cfg = tmp_path / "c.yaml"
-    for extra in ("mesh: {data: 4}", "distributed: true"):
+    for extra in ("mesh: {data: 4}", "distributed: true\nmesh: {data: 4}"):
         cfg.write_text(CLI_CONFIG % (1, "adamw", 0, extra))
-        with pytest.raises(NotImplementedError, match="auxiliaries slice"):
+        with pytest.raises(ValueError, match=r"mesh \{'data': 4\} needs 4 devices, have 1"):
             pretrain.main(*runner.parse_args("t", ["--config", str(cfg), "--device", "cpu",
                                                    "--save-root", str(tmp_path / "s")]))
     cfg.write_text(CLI_CONFIG % (1, "adamw", 0, ""))

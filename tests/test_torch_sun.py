@@ -223,9 +223,10 @@ def test_cli_writes_the_dataset_and_dual_view_grids(tmp_path):
 def test_cli_defaults_to_the_card_and_refuses_auxiliaries(tmp_path, monkeypatch):
     cfg = tmp_path / "c.yaml"
     cfg.write_text(SUN_CLI % ("null", 1, "float32", "mesh: {data: 4}"))
-    with pytest.raises(NotImplementedError, match="auxiliaries slice"):
+    with pytest.raises(ValueError, match=r"mesh \{'data': 4\} needs 4 devices, have 1"):
         sun.main(*runner.parse_args("t", ["--config", str(cfg), "--device", "cpu",
                                           "--save-root", str(tmp_path / "s")]))
+    assert not (tmp_path / "s").exists()  # refused before a run directory is made
     cfg.write_text(SUN_CLI % ("null", 1, "float32", ""))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     c, args = runner.parse_args("t", ["--config", str(cfg), "--save-root", str(tmp_path / "s")])

@@ -3,6 +3,8 @@ draws injected, one training episode's loss and gradients for each solver,
 the task batch's NaN rule, a two-epoch trajectory, SFC under grad mode, and
 the CLI on ``--device cpu``. The JAX Pallas kernel runs in interpret mode."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from fewshot_vit_tpu_torch.data import patches as tp
 from fewshot_vit_tpu_torch.heads.deepemd import DeepEMD as TDeepEMD
 from fewshot_vit_tpu_torch.kernels import sinkhorn as tks
 from fewshot_vit_tpu_torch.models.visformer import Visformer as TVisformer
+from fewshot_vit_tpu_torch.parallel.mesh import make_mesh
 from fewshot_vit_tpu_torch.train import meta_tune_emd as tt
 from fewshot_vit_tpu_torch.train.runner import parse_args
 from fewshot_vit_tpu_torch.train.state import TrainState
@@ -358,9 +361,8 @@ def test_validate_episode_mesh_messages():
         assert str(got.value) == str(want.value)
     tt.validate_episode_mesh({"data": 2}, False, 4)
     with pytest.raises(ValueError, match="must divide"):
-        tt.make_emd_epoch_fn(None, None, 3, mesh={"data": 2})
-    with pytest.raises(NotImplementedError, match="auxiliaries slice"):
-        tt.make_emd_epoch_fn(None, None, 4, mesh={"data": 2})
+        tt.make_emd_epoch_fn(None, None, 3, mesh=SimpleNamespace(shape={"data": 2}))
+    assert callable(tt.make_emd_epoch_fn(None, None, 4, mesh=make_mesh({"data": 1}, "cpu")))
 
 
 # --- the CLI ---------------------------------------------------------------------------
@@ -434,7 +436,7 @@ def test_cli_mesh_fails_with_the_jax_words_and_needs_a_card(tmp_path, monkeypatc
     with pytest.raises(ValueError, match="must divide evenly over the mesh data"):
         tt.main(load_config(str(cfg)), args)  # bs 2 over data 4
     cfg.write_text(CLI_CONFIG % ("grid", 1, "mesh: {data: 2}"))
-    with pytest.raises(NotImplementedError, match="auxiliaries slice"):
+    with pytest.raises(ValueError, match=r"mesh \{'data': 2\} needs 2 devices, have 1"):
         tt.main(load_config(str(cfg)), args)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg_, cuda_args = parse_args("test", ["--config", str(ok)])
