@@ -182,11 +182,37 @@ Phases, in order; any failure exits non-zero:
  31. the trainer steps of both groups held to the one-rank ones by the
      trainer rules (loss 1e-4, parameters 2e-5, BN statistics 1e-5; the
      stem within 2e-5 or 1e-2 of its update's max-abs, the stem rule);
- 32. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
-     ``slice10`` and kernels' JSON lines, then the result line.
+ 32. (after phase 31) the bench entry (``fewshot_vit_tpu_torch.bench``, the
+     protocol of the repository's ``bench.py``: 1024 5-way 1-shot episodes,
+     128 a batch, bf16, BN folded, a warm pass, then the timed one) and its
+     ``--int8``: one JSON line each with 2 MHSA launches per batch on the
+     tensor-core route (32; ``--int8`` 2 more for its calibration forward);
+     the timed pass's episodes again with the general route forced and with
+     plain attention, held by the bf16 rule;
+ 33. ``tools.precision_check`` at JAX's settings (512 episodes, fp32 64 a
+     batch on the MHSA kernel's general route, bf16 128 on its tensor-core
+     route): acc_fp32 > 0.3 and abs_diff <= 0.005, JAX's gate;
+ 34. ``tools.learning_probe`` at JAX's depth (CE pretrain, SUN,
+     Meta-Baseline tune, SUN-D EMD tune at 12/8/3/2 epochs, 200 episodes;
+     the 5-shot SFC evaluation over ``LPROBE_5SHOT_EPISODES``), gated by
+     ``TestLearningQuality``'s asserts, no kernel launched (as in JAX); then
+     the trained weights re-scored with each kernel against its plain path
+     in fp32 by the accuracy rule (p3 with the fused MHSA, p4 1-shot with
+     ``sinkhorn_pallas``);
+ 35. ``graft_entry.entry()``'s forward on the card and
+     ``python -m fewshot_vit_tpu_torch.graft_entry --n 2``
+     (``dryrun_multichip(2)``: two ranks on cuda:0 over gloo, the five
+     patterns): five ok lines;
+ 36. the ``model`` axis: two gloo ranks on cuda:0 under ``mesh: {data: 1,
+     model: 2}`` each run the SUN step and the pretrain step of 512 images
+     (fp32, SGD) with column-parallel wide layers, held to one rank's steps
+     by the trainer rules bound to the update; MHSA launches per rank.
+     The rank processes of 35 and 36 run beside phases 33-34;
+ 37. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
+     ``slice10``, ``slice11`` and kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
-(the ranks of phases 30-31 run this file with ``--mesh-rank DIR``).
+(the ranks of phases 30-31 and 36 run this file with ``--mesh-rank DIR``).
 (``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
 SUN-D grid episode batch, of one training step of each trainer, and of one
 pretrain step of the slowest zoo family.)
@@ -195,6 +221,7 @@ pretrain step of the slowest zoo family.)
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1061,11 +1088,21 @@ def _expect_counts(label, mhsa_route, n_mhsa, n_sinkhorn=0):
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
     from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
 
-    counts = {"fused_mhsa": dict(fused_mhsa.route_launches),
-              "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
-    want = {"fused_mhsa": {r: (n_mhsa if r == mhsa_route else 0)
-                           for r in ("general", "tensor_core")},
-            "sinkhorn_pallas": {"general": 0, "packed": n_sinkhorn}}
+    return _check_launches(label, {"fused_mhsa": dict(fused_mhsa.route_launches),
+                                   "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)},
+                           mhsa_route, n_mhsa, n_sinkhorn)
+
+
+def _check_launches(label, counts, mhsa_route, n_mhsa, n_sinkhorn=0):
+    """``counts`` (by kernel and route) must be ``n_mhsa`` fused-MHSA
+    launches on ``mhsa_route`` and ``n_sinkhorn`` packed Sinkhorn launches,
+    no other."""
+    return _check_counts(label, counts, {
+        "fused_mhsa": {r: (n_mhsa if r == mhsa_route else 0) for r in ("general", "tensor_core")},
+        "sinkhorn_pallas": {"general": 0, "packed": n_sinkhorn}})
+
+
+def _check_counts(label, counts, want):
     if counts != want:
         _fail(f"{label}: expected launches {want}, counted {counts}")
     return counts
@@ -2966,7 +3003,8 @@ def _mesh_sund_step(dev, mesh):
 def _mesh_sun_step(dev, mesh):
     """One SUN step (``train.loop.make_sun_epoch``) of batch 512, the dual
     view, drop-path 0.5, an fp32 teacher, SGD, seeded weights: (state dict
-    before, after, loss, seconds, launches, ``again``). ``again(clocked)``
+    before, after (the full layout), loss, seconds, launches, ``again``, the
+    student's column-parallel layers under a ``model`` axis). ``again(clocked)``
     runs one more step of the same batch and returns (seconds, collective
     seconds, collectives): a warm step, with host clocks around each
     collective (synchronized) when ``clocked``."""
@@ -2989,8 +3027,10 @@ def _mesh_sun_step(dev, mesh):
                            classifier_args={"n_classes": mini.n_classes}, device=dev, seed=seed)
 
     student, teacher = token_label(0), token_label(1).requires_grad_(False).eval()
-    state = TrainState(student, build_optimizer(Config(MESH_SUN_OPT), student.parameters()))
     start = _state_copy(student)
+    # the model axis: column-parallel wide layers, before the optimizer sees them
+    sliced = pmesh.param_shardings(mesh, student) if mesh is not None else []
+    state = TrainState(student, build_optimizer(Config(MESH_SUN_OPT), student.parameters()))
     epoch = make_sun_epoch(make_dual_view_fn(mini.mean, mini.std, out_size=80), mini.mean,
                            mini.std, **SUN_KW)
     images = torch.from_numpy(mini.images).to(dev)
@@ -3027,7 +3067,7 @@ def _mesh_sun_step(dev, mesh):
         _, secs, _ = step(clock)
         return secs, spent[0], spent[1]
 
-    return start, after, float(m["loss"][0]), secs, counts, again
+    return start, after, float(m["loss"][0]), secs, counts, again, sliced
 
 
 def _gloo_cuda_probe(dev):
@@ -3072,12 +3112,15 @@ def _mesh_rank(job_dir) -> int:
     with open(os.path.join(job_dir, "spec.json")) as f:
         spec = json.load(f)
     rank, t_start = int(os.environ["RANK"]), time.perf_counter()
-    mesh = pmesh.make_mesh({"data": spec["data"]}, spec["device"])
+    axes = {"data": spec["data"], **({"model": spec["model"]} if spec.get("model") else {})}
+    mesh = pmesh.make_mesh(axes, spec["device"])
     dev = mesh.device
     out = {"rank": rank, "backend": mesh.backend, "device": str(dev),
            "describe": mesh.describe()}
     save = (lambda obj, name: torch.save(obj, os.path.join(job_dir, name))) if rank == 0 else (
         lambda obj, name: None)
+    if mesh.size("model") > 1:  # slice 11, phase 36: the model axis
+        return _model_axis_rank(job_dir, mesh, out, save, t_start)
     if spec["data"] == 1:  # NCCL, one rank: a collective on the default group, then SUN
         x = torch.ones(2, device=dev)
         dist.all_reduce(x)
@@ -3100,7 +3143,7 @@ def _mesh_rank(job_dir) -> int:
         outs, ms, counts = _serve_calls(dev, spec["artifact"], spec["serve_inputs"], mesh)
         save(torch.cat([o.cpu() for o in outs]), "serve.pt")
         out["serve"] = {"ms_per_call": ms, "launches": counts}
-    _, sd, loss, secs, counts, again = _mesh_sun_step(dev, mesh)
+    _, sd, loss, secs, counts, again, _ = _mesh_sun_step(dev, mesh)
     save(sd, "sun.pt")
     out["sun_step"] = {"loss": loss, "s": secs, "launches": counts}
     if spec["data"] > 1:  # the NCCL rank shares the card with the one-rank runs: not timed
@@ -3148,17 +3191,20 @@ def _launch_group(job_dir, nproc, spec):
            os.path.abspath(__file__), "--mesh-rank", job_dir]
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
                OMP_NUM_THREADS="1")
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            env=env)
+    # output to a file: a group may run while nothing reads it
+    with open(os.path.join(job_dir, "log.txt"), "w") as log:
+        return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
 
 
 def _wait_group(proc, job_dir, nproc, label):
     try:
-        text = proc.communicate(timeout=MESH_TIMEOUT_S)[0]
+        proc.wait(timeout=MESH_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
+        _stop([proc])
         _fail(f"{label}: the ranks outlived {MESH_TIMEOUT_S} s")
+    with open(os.path.join(job_dir, "log.txt")) as f:
+        text = f.read()
     if proc.returncode != 0:
         print(text[-6000:])
         _fail(f"{label}: torch.distributed.run exited {proc.returncode}")
@@ -3265,7 +3311,7 @@ def _slice10(dev, tmp, pth, tag):
         "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16", "--device", str(dev)]))
     one["run_emd_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts}
     sund_start, sund_sd, sund_loss, _, _ = _mesh_sund_step(dev, None)
-    sun_start, sun_sd, sun_loss, sun_s, _, sun_again = _mesh_sun_step(dev, None)
+    sun_start, sun_sd, sun_loss, sun_s, _, sun_again, _ = _mesh_sun_step(dev, None)
     nccl, _ = _wait_group(proc, nccl_dir, 1, "the NCCL rank")
     nccl_s = time.perf_counter() - t0
     one["eval_bf16"]["episodes_per_s"] = _mesh_eval_timing(dev, pth, None)
@@ -3375,6 +3421,350 @@ def _slice10(dev, tmp, pth, tag):
     return entry, launches
 
 
+# --- slice 11: the programs outside the package, the model axis ------------------------------
+LPROBE_5SHOT_EPISODES = 32  # phase 34's 5-shot SFC evaluation (host-bound): 2 groups of 16
+LPROBE_RESCORE_EPISODES = 200  # the probe's own count: the trained weights re-scored
+MODEL_AXIS = {"data": 1, "model": 2}
+
+
+def _bf16_rule(label, accs_tc, accs_gen, accs_plain):
+    """Phase 5's bf16 rule on the same episodes: the tensor-core route
+    against the general route and against plain attention may differ on the
+    share of episodes where the general route and plain attention differ,
+    plus 1%; mean |dacc| at most 0.005."""
+    pairs = {}
+    for name, a, b in (("tensor-core vs general route", accs_tc, accs_gen),
+                       ("tensor-core route vs plain path", accs_tc, accs_plain),
+                       ("general route vs plain path", accs_gen, accs_plain)):
+        pairs[name] = {"episodes_differing": float((a != b).mean()),
+                       "mean_abs_d_acc": float(abs(a - b).mean())}
+        print(f"{label} bf16 {name}: {len(a)} episodes, differing="
+              f"{pairs[name]['episodes_differing']:.4f}, mean|dacc|="
+              f"{pairs[name]['mean_abs_d_acc']:.5f}, acc {a.mean():.4f} vs {b.mean():.4f}")
+    allowed = pairs["general route vs plain path"]["episodes_differing"] + 0.01
+    for name in ("tensor-core vs general route", "tensor-core route vs plain path"):
+        if pairs[name]["episodes_differing"] > allowed or pairs[name]["mean_abs_d_acc"] > 0.005:
+            _fail(f"{label} bf16 {name}: {pairs[name]} (allowed share {allowed:.4f}, "
+                  f"mean|dacc| 0.005)")
+    return pairs
+
+
+def _bench_phase(dev, tag):
+    """Phase 32: the bench entry's protocol in this process (``bench.run``,
+    whose result dict ``bench.measure`` returns), the headline and
+    ``--int8``, one JSON line each; the MHSA launches counted (2 per
+    128-episode batch over the warm and the timed pass, tensor-core route;
+    ``--int8`` adds its calibration forward); then the timed pass's
+    episodes with the general route forced and with plain attention, held by
+    the bf16 rule."""
+    from fewshot_vit_tpu_torch import bench
+    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
+
+    per = _mhsa_per_forward()
+    n_batches = 2 * math.ceil(bench.N_EPISODES / bench.EP_PER_BATCH)  # warm + timed
+    out, launches, accs_tc = {}, {}, None
+    for int8 in (False, True):
+        (result, accs), secs, counts = _counted(lambda: bench.run(int8=int8, device=dev))
+        print(json.dumps(result))
+        print(f"bench {tag}: {result['metric']} = {result['value']} {result['unit']}, "
+              f"vs_baseline {result['vs_baseline']} ({secs:.1f} s with the split, the fold"
+              f"{' and the calibration' if int8 else ''} and the warm pass); acc "
+              f"{accs.mean():.4f}")
+        label = "bench_int8" if int8 else "bench"
+        launches[label] = _check_launches(label, counts, "tensor_core",
+                                          per * n_batches + (per if int8 else 0))
+        out[label] = {**result, "s": secs, "acc": float(accs.mean())}
+        if not int8:
+            accs_tc = accs
+    ds = bench.bench_split()
+    with mhsa_mod.force_route("general"):
+        general, accs_gen = bench.run(device=dev, dataset=ds)
+    plain, accs_plain = bench.run(device=dev, dataset=ds,
+                                  make_head=lambda: bench.bench_head(use_pallas_attn=False))
+    out["general_route_value"], out["plain_value"] = general["value"], plain["value"]
+    print(f"timing {tag}: the bench's protocol, episodes/s: tensor-core route "
+          f"{out['bench']['value']}, general route forced {general['value']}, plain attention "
+          f"{plain['value']}, int8 {out['bench_int8']['value']}")
+    out["bf16_rule"] = _bf16_rule(f"bench {tag}: the timed pass", accs_tc, accs_gen, accs_plain)
+    return out, launches
+
+
+def _precision_phase(dev, tag):
+    """Phase 33: ``tools.precision_check`` at JAX's settings (512 episodes,
+    fp32 64 a batch, bf16 128), gated as ``TestPrecisionParity``:
+    acc_fp32 > 0.3 and abs_diff <= 0.005; the launches per route (fp32
+    takes the MHSA kernel's general route, bf16 its tensor-core route)."""
+    from fewshot_vit_tpu_torch.tools import precision_check
+
+    res, secs, counts = _counted(lambda: precision_check.run(device=dev))
+    print(json.dumps(res))
+    per, n = _mhsa_per_forward(), res["n_episodes"]
+    want = {"fused_mhsa": {"general": per * math.ceil(n / 64),
+                           "tensor_core": per * math.ceil(n / 128)},
+            "sinkhorn_pallas": {"general": 0, "packed": 0}}
+    print(f"precision {tag}: {secs:.1f} s, launches by route {counts}")
+    _check_counts("precision_check", counts, want)
+    if not (res["acc_fp32"] > 0.3 and res["abs_diff"] <= 0.005):
+        _fail(f"precision_check: acc_fp32 > 0.3 and abs_diff <= 0.005 do not hold: {res}")
+    return {**res, "s": secs}, {"precision_check": counts}
+
+
+LEARNING_GATES = (  # tests/test_cli_integration.py::TestLearningQuality, unchanged
+    ("p0 < 0.45", lambda d: d["p0"] < 0.45),
+    ("p1 > 0.70", lambda d: d["p1"] > 0.70),
+    ("p2 >= p1 - 0.045", lambda d: d["p2"] >= d["p1"] - 0.045),
+    ("p2 > 0.80", lambda d: d["p2"] > 0.80),
+    ("p3 > 0.75", lambda d: d["p3"] > 0.75),
+    ("p3 > p0 + 0.35", lambda d: d["p3"] > d["p0"] + 0.35),
+    ("p4_1shot >= p2 - 0.03", lambda d: d["p4_1shot"] >= d["p2"] - 0.03),
+    ("p4_5shot > p4_1shot + 0.03", lambda d: d["p4_5shot"] > d["p4_1shot"] + 0.03),
+)
+
+
+def _learning_phase(dev, tmp, tag):
+    """Phase 34: ``tools.learning_probe.run`` at JAX's depth (12/8/3/2
+    epochs, 200 episodes, seed 12345; the 5-shot SFC evaluation cut to
+    ``LPROBE_5SHOT_EPISODES``), gated by ``TestLearningQuality``'s asserts;
+    no kernel launched (einsum attention, ``sinkhorn_detached``, as in
+    JAX). Then the trained weights re-scored with each kernel against its
+    plain path, fp32, TF32 off, by the accuracy rule: p3's ``max-va`` with
+    ``use_pallas_attn: true`` against the einsum path, p4's ``max-va``
+    1-shot with ``solver: sinkhorn_pallas`` against ``sinkhorn_detached``.
+    The plain re-scores must give the probe's own p3 and p4_1shot."""
+    from fewshot_vit_tpu_torch.checkpoint.io import load_model
+    from fewshot_vit_tpu_torch.data.staging import upload_images
+    from fewshot_vit_tpu_torch.tools import learning_probe as lp
+
+    save_root = os.path.join(tmp, "lprobe")
+    res, secs, counts = _counted(lambda: lp.run(
+        save_root, n_episodes_5shot=LPROBE_5SHOT_EPISODES, device=dev))
+    print(json.dumps(res))
+    print(f"learning probe {tag}: {secs:.1f} s (5-shot SFC over {LPROBE_5SHOT_EPISODES} of the "
+          f"{LPROBE_RESCORE_EPISODES} episodes)")
+    launches = {"learning_probe": _check_launches("learning_probe", counts, "general", 0)}
+    failed = [name for name, gate in LEARNING_GATES if not gate(res)]
+    if failed:
+        _fail(f"learning probe: {failed} do not hold: {res}")
+    out = {**res, "s": secs, "p4_5shot_episodes": LPROBE_5SHOT_EPISODES}
+
+    test_ds = lp.novel_split()
+    images = upload_images(test_ds.images, dev)
+    n = LPROBE_RESCORE_EPISODES
+    p3, p4 = (os.path.join(save_root, run, "max-va") for run in ("lp_p3", "lp_p4"))
+    for name, score, kernel_kw, plain_mean, route, n_mhsa, n_sk in (
+            ("p3_kernel", lambda h: lp.meta_baseline_accs(h, test_ds, n, images),
+             {"encoder_args": {"use_pallas_attn": True}}, res["p3"], "general",
+             _mhsa_per_forward() * math.ceil(n / 8), 0),
+            ("p4_kernel", lambda h: lp.emd_accs(h, test_ds, 1, n, images),
+             {"solver": "sinkhorn_pallas"}, res["p4_1shot"], "general", 0,
+             math.ceil(n / lp.EMD_GROUP))):
+        ckpt = p3 if name == "p3_kernel" else p4
+        plain = score(load_model(ckpt, device=dev))
+        kernel, _, counts = _counted(lambda: score(load_model(ckpt, device=dev, **kernel_kw)))
+        launches[f"learning_{name}"] = _check_launches(name, counts, route, n_mhsa, n_sk)
+        out[name] = _acc_rule(f"learning {tag}: {name[:2]}'s max-va with {kernel_kw} vs the "
+                              f"plain path (fp32, TF32 off)", kernel, plain)
+        out[name]["reproduced"] = round(float(plain.mean()), 4) == plain_mean
+        if not out[name]["reproduced"]:
+            _fail(f"{name}: the plain re-score {plain.mean():.4f} is not the probe's "
+                  f"{plain_mean}")
+    return out, launches
+
+
+def _start_dryrun(tmp):
+    """Phase 35's ``python -m fewshot_vit_tpu_torch.graft_entry --n 2``
+    (``dryrun_multichip(2)``: two ranks sharing cuda:0 over gloo), started
+    in a session of its own, its output in a file: (process, log path)."""
+    log = os.path.join(tmp, "dryrun.txt")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fewshot_vit_tpu_torch.graft_entry", "--n", "2"],
+            stdout=f, stderr=subprocess.STDOUT, cwd=root, start_new_session=True,
+            env=dict(os.environ, PYTHONPATH=root))
+    return proc, log
+
+
+def _graft_entry_phase(dev, tag, dryrun):
+    """Phase 35: ``graft_entry.entry()``'s forward on the card, and the
+    dryrun ``_start_dryrun`` started: exit 0 and five ok lines."""
+    import torch
+
+    from fewshot_vit_tpu_torch import graft_entry
+
+    fn, (module, x_shot, x_query) = graft_entry.entry()
+    logits, secs, counts = _counted(lambda: fn(module, x_shot, x_query))
+    if tuple(logits.shape) != (1, 75, 5) or not torch.isfinite(logits).all():
+        _fail(f"graft_entry.entry: logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+    # the flagship head leaves use_pallas_attn at its default (off), as JAX's entry does
+    launches = {"graft_entry": _check_launches("graft_entry.entry", counts, "general", 0)}
+    proc, log = dryrun
+    try:
+        rc = proc.wait(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"dryrun_multichip(2) outlived {MESH_TIMEOUT_S} s")
+    with open(log) as f:
+        text = f.read()
+    ok = [ln for ln in text.splitlines() if ln.startswith("dryrun_multichip ok")]
+    print("\n".join(ok))
+    print(f"graft entry {tag}: entry forward {secs * 1e3:.1f} ms (first call); "
+          f"dryrun_multichip(2) on {dev} exit {rc}, beside phases 33-34")
+    if rc != 0 or len(ok) != 5:
+        _fail(f"dryrun_multichip(2) exited {rc} with {len(ok)} ok lines:\n{text[-3000:]}")
+    return {"entry_ms": secs * 1e3, "ok_lines": ok}, launches
+
+
+def _mesh_pretrain_step(dev, mesh):
+    """One pretrain step (``train.loop.make_pretrain_epoch``) of batch 512,
+    cropaug, drop-path 0.5, SGD, seeded weights, fp32: (state dict before,
+    after (the full layout), loss, seconds, launches, the column-parallel
+    layers under a ``model`` axis)."""
+    import torch
+
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets, models
+    from fewshot_vit_tpu_torch.data.augment import make_cropaug_fn
+    from fewshot_vit_tpu_torch.heads import classifier as _classifier  # noqa: F401
+    from fewshot_vit_tpu_torch.parallel import mesh as pmesh
+    from fewshot_vit_tpu_torch.train.loop import make_pretrain_epoch
+    from fewshot_vit_tpu_torch.train.runner import build_optimizer
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    mini = datasets.make("synthetic", **MESH_SUN_DATA)
+    model = models.make("classifier", encoder=ENCODER,
+                        encoder_args={"drop_path_rate": 0.5, "use_pallas_attn": True},
+                        classifier_args={"n_classes": mini.n_classes}, device=dev, seed=0)
+    start = _state_copy(model)
+    sliced = pmesh.param_shardings(mesh, model) if mesh is not None else []
+    state = TrainState(model, build_optimizer(Config(MESH_SUN_OPT), model.parameters()))
+    epoch = make_pretrain_epoch(make_cropaug_fn(mini.mean, mini.std, out_size=80), mini.mean,
+                                mini.std)
+    images = torch.from_numpy(mini.images).to(dev)
+    labels = torch.from_numpy(mini.labels.astype("int64")).to(dev)
+    idx = _steps_idx(len(mini), 1, 1, dev)
+    with pmesh.use_mesh(mesh):
+        m, secs, counts = _counted(lambda: epoch(state, images, labels, idx, (0, 1)))
+    after = {k: v.detach().clone() for k, v in state.variables.items()}
+    return start, after, float(m["loss"][0]), secs, counts, sliced
+
+
+def _model_axis_rank(job_dir, mesh, out, save, t_start) -> int:
+    """A rank of phase 36's group (``mesh: {data: 1, model: 2}``): the SUN
+    step and the pretrain step of 512 images with column-parallel wide
+    layers; rank 0 saves the full-layout state after each."""
+    import torch.distributed as dist
+
+    for name, step in (("sun_step", lambda: _mesh_sun_step(mesh.device, mesh)),
+                       ("pretrain_step", lambda: _mesh_pretrain_step(mesh.device, mesh))):
+        res = step()
+        _, sd, loss, secs, counts = res[:5]
+        save(sd, f"{name}.pt")
+        out[name] = {"loss": loss, "s": secs, "launches": counts, "sliced": len(res[-1]),
+                     "qkv_sliced": "encoder.stage2.0.attn.qkv" in res[-1]}
+        del res, sd
+    out["rank_s"] = time.perf_counter() - t_start
+    with open(os.path.join(job_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _model_axis(dev, tag, group):
+    """Phase 36 (ROADMAP item j): two gloo ranks sharing cuda:0 under
+    ``mesh: {data: 1, model: 2}`` (``group``: the launched process and its
+    directory), each running the SUN step and the pretrain step of 512
+    images at full width (fp32, SGD), the wide layers column-parallel
+    (stage 2's ``qkv`` among them); each held to one rank's step by
+    ``_hold_state``'s rule, bound to its update; the MHSA launches counted
+    per rank (the SUN teacher's 2 a step, general route; none in the
+    pretrain step)."""
+    import torch
+
+    sun_start, sun_sd, sun_loss, sun_s, _, again, _ = _mesh_sun_step(dev, None)
+    del again
+    pre_start, pre_sd, pre_loss, pre_s, pre_counts, _ = _mesh_pretrain_step(dev, None)
+    torch.cuda.empty_cache()
+    proc, job = group
+    ranks, _ = _wait_group(proc, job, 2, "the model-axis group")
+    per = _mhsa_per_forward()
+    launches = {"model1_pretrain_step": _check_launches("one-rank pretrain step", pre_counts,
+                                                        "general", 0)}
+    for r in ranks:
+        if r["backend"] != "gloo" or r["device"] != str(dev):
+            _fail(f"model-axis rank {r['rank']}: backend {r['backend']} on {r['device']}")
+        if not (r["sun_step"]["qkv_sliced"] and r["pretrain_step"]["qkv_sliced"]):
+            _fail(f"model-axis rank {r['rank']}: stage 2's qkv is not column-parallel")
+        print(f"model axis {tag}: rank {r['rank']}: {r['describe']}; column-parallel layers: "
+              f"SUN {r['sun_step']['sliced']}, pretrain {r['pretrain_step']['sliced']}")
+    for name, n in (("sun_step", per), ("pretrain_step", 0)):
+        got = [r[name]["launches"] for r in ranks]
+        launches[f"model2_{name}"] = {f"rank{i}": c for i, c in enumerate(got)}
+        for i, c in enumerate(got):
+            _check_launches(f"model axis {name}, rank {i}", c, "general", n)
+    load = lambda name: torch.load(os.path.join(job, name), map_location="cpu")
+    cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
+    entry = {}
+    for name, sd, start, loss, one_s in (("sun_step", sun_sd, sun_start, sun_loss, sun_s),
+                                         ("pretrain_step", pre_sd, pre_start, pre_loss, pre_s)):
+        entry[name] = _hold_state(
+            f"model axis {tag}: {name}, two gloo ranks under {MODEL_AXIS} vs one rank",
+            load(f"{name}.pt"), cpu(sd), start, ranks[0][name]["loss"], loss)
+        entry[name].update({"s_ranks": [r[name]["s"] for r in ranks], "one_rank_s": one_s,
+                            "sliced": ranks[0][name]["sliced"]})
+    print(f"model axis {tag}: first steps, warm-up included: SUN two ranks "
+          f"{entry['sun_step']['s_ranks']} s, one rank {sun_s:.3f} s; pretrain two ranks "
+          f"{entry['pretrain_step']['s_ranks']} s, one rank {pre_s:.3f} s (the ranks ran beside "
+          f"phases 33-34: they measure correctness, not speed)")
+    return entry, launches
+
+
+def _stop(procs):
+    """Kill every process of each session in ``procs`` that is still running."""
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def _slice11(dev, tmp, tag):
+    """Phases 32-36: the bench entry, the two gates, the graft entry points and
+    the model axis. The rank processes of phases 35-36 start once the timed
+    bench is done and run beside phases 33-34. Returns (the slice11 JSON
+    entry, launches by path)."""
+    import torch
+
+    t_start, entry, launches = time.perf_counter(), {}, {}
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        entry[name], counts = fn()
+        entry[name]["phase_s"] = time.perf_counter() - t0
+        launches.update(counts)
+        torch.cuda.empty_cache()
+
+    phase("bench", lambda: _bench_phase(dev, tag))
+    job = os.path.join(tmp, "mesh_model")
+    group = (_launch_group(job, 2, {**MODEL_AXIS, "device": dev.type}), job)
+    dryrun = _start_dryrun(tmp)
+    try:
+        phase("precision", lambda: _precision_phase(dev, tag))
+        phase("learning", lambda: _learning_phase(dev, tmp, tag))
+        phase("graft_entry", lambda: _graft_entry_phase(dev, tag, dryrun))
+        phase("model_axis", lambda: _model_axis(dev, tag, group))
+    finally:
+        _stop([group[0], dryrun[0]])
+    entry["phases_s"] = time.perf_counter() - t_start
+    print(f"slice 11 phases (32-36) {tag}: {entry['phases_s']:.1f} s ("
+          + ", ".join(f"{k} {v['phase_s']:.1f}" for k, v in entry.items()
+                      if isinstance(v, dict)) + ")")
+    return entry, launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", default=None, help="write a profiler table here")
@@ -3415,6 +3805,12 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card)
     tag = f"[{card}]"
+    t_lap = [time.perf_counter()]
+
+    def lap(phases):  # wall seconds of a block of phases, for cutting depth to the budget
+        now = time.perf_counter()
+        print(f"phases {phases} {tag}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # phase 3
     t0 = time.perf_counter()
@@ -3487,19 +3883,7 @@ def main() -> int:
     with mhsa_mod.force_route("general"):
         _, _, accs_o = run(main_head, N_EPISODES, indices=idx)
     _, _, accs_p = run(plain_head, N_EPISODES, indices=idx)
-    pairs = {}
-    for label, a, b in (("tensor-core vs general route", accs_k, accs_o),
-                        ("tensor-core route vs plain path", accs_k, accs_p),
-                        ("general route vs plain path", accs_o, accs_p)):
-        pairs[label] = (float((a != b).mean()), float(abs(a - b).mean()))
-        print(f"bf16 {label}: episodes differing={pairs[label][0]:.4f}, "
-              f"mean|dacc|={pairs[label][1]:.5f}, acc {a.mean():.4f} vs {b.mean():.4f}")
-    allowed = pairs["general route vs plain path"][0] + 0.01
-    for label in ("tensor-core vs general route", "tensor-core route vs plain path"):
-        differ, mean_d = pairs[label]
-        if differ > allowed or mean_d > 0.005:
-            _fail(f"bf16 {label}: {differ:.4f} of the episodes differ (allowed {allowed:.4f}), "
-                  f"mean|dacc| {mean_d:.5f} (allowed 0.005)")
+    _bf16_rule("main path", accs_k, accs_o, accs_p)
 
     # phase 7, SUN-M: timings, in turns; "old" forces the general route
     eps = {"fused": [], "old": [], "plain": []}
@@ -3574,11 +3958,13 @@ def main() -> int:
         print("\n".join(table.splitlines()[:25]))
     del main_head, plain_head, head
     torch.cuda.empty_cache()
+    lap("1-5 and 7 (SUN-M)")
 
     sinkhorn = _run_sund(dev, ds, images_dev, tag, gen, args.profile, card)
     kernels.append({**sinkhorn, "max_abs_err": sinkhorn_errs["grid"],
                     "max_abs_err_train_shape": sinkhorn_errs["train episode"]})
     torch.cuda.empty_cache()
+    lap("6-7 (SUN-D)")
 
     # phases 8-10: the two trainers
     val_ds = datasets.make("synthetic", n_classes=20, n_per_class=40, image_size=80, seed=3)
@@ -3589,6 +3975,7 @@ def main() -> int:
     train_launches.update(sunm_launches)
     torch.cuda.empty_cache()
     _run_clis(tag)
+    lap("8-10 (meta-tuning, the CLIs)")
 
     # phases 11-13: pretraining and SUN on a split at miniImageNet train geometry
     import tempfile
@@ -3608,6 +3995,7 @@ def main() -> int:
                                           images_dev, tag, args.profile, card, ckpt)
         sun, sun_counts = _train_sun(dev, mini, mini_dev, mini_labels, tag, args.profile, card,
                                      ckpt)
+        lap("11-13 (pretrain, SUN)")
         # phases 17-18: the encoder zoo on the same resident split
         zoo, zoo_launches, zoo_ckpts = _zoo_pretrain(dev, mini, mini_dev, mini_labels, tag,
                                                      args.profile, card, tmp)
@@ -3630,6 +4018,7 @@ def main() -> int:
         zoo_launches.update(counts)
         zoo["zoo_forward"], counts = _zoo_forward(dev, tag, tmp)
         zoo_launches.update(counts)
+        lap("17-20 (the zoo)")
     training.update(pre)
     training.update(sun)
     training.update(zoo)
@@ -3643,6 +4032,7 @@ def main() -> int:
         eval_launches.update(counts)
         clis["loaders"], counts = _loaders(dev, tmp, pth, tag)
         eval_launches.update(counts)
+        lap("14-16 (the CLI chain, the eval CLIs, the loaders)")
         # phases 21-23: solver exact, the research heads, the visualization paths
         t8 = time.perf_counter()
         slice8["exact"], counts = _exact_emd(dev, ds, images_dev, tag, tmp)
@@ -3671,6 +4061,8 @@ def main() -> int:
         print(f"slice 9 phases (24-28) {tag}: {slice9['phases_s']:.1f} s")
         # phases 29-31: the mesh
         slice10, slice10_launches = _slice10(dev, tmp, pth, tag)
+        # phases 32-36: the bench entry, the two gates, the graft entry points, the model axis
+        slice11, slice11_launches = _slice11(dev, tmp, tag)
     for entry in kernels:
         entry["train_launches"] = {
             path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
@@ -3689,6 +4081,11 @@ def main() -> int:
         entry["slice10_launches"] = {path: {r: sum(c[entry["name"]].values())
                                             for r, c in per_rank.items()}
                                      for path, per_rank in slice10_launches.items()}
+        # phase 36's paths per rank, the others in this process
+        entry["slice11_launches"] = {
+            path: ({r: sum(rc[entry["name"]].values()) for r, rc in c.items()}
+                   if path.startswith("model2_") else sum(c[entry["name"]].values()))
+            for path, c in slice11_launches.items()}
     clis["zoo"] = zoo_eval
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training, "card": card}))
@@ -3696,6 +4093,7 @@ def main() -> int:
     print(json.dumps({"slice8": slice8, "card": card}))
     print(json.dumps({"slice9": slice9, "card": card}))
     print(json.dumps({"slice10": slice10, "card": card}))
+    print(json.dumps({"slice11": slice11, "card": card}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ from fewshot_vit_tpu_torch.models.visformer import Visformer
 from fewshot_vit_tpu_torch.train import meta_tune, meta_tune_emd, pretrain, runner, sun
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fewshot_vit_tpu")
+# the JAX package, and the repository's JAX programs outside it (bench.py,
+# __graft_entry__.py, tools/): the port has twins of its own
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fewshot_vit_tpu", "bench",
+             "__graft_entry__", "tools")
 
 
 def _port_files():
@@ -57,6 +60,11 @@ def test_scan_covers_the_port():
     assert (ROOT / "fewshot_vit_tpu_torch" / "native" / "emd_solver.cpp").is_file()
     assert (ROOT / "fewshot_vit_tpu_torch" / "utils" / "__init__.py") in _port_files()
     assert len([p for p in _port_files() if p.name == "token_label.py"]) == 2  # ops and heads
+    # the JAX system's programs outside its package: the bench, the graft
+    # entry points and the two accelerator gates
+    for rel in ("bench.py", "graft_entry.py", "tools/__init__.py", "tools/precision_check.py",
+                "tools/learning_probe.py"):
+        assert (ROOT / "fewshot_vit_tpu_torch" / rel) in _port_files(), rel
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -225,6 +233,21 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             export.main(["--config", str(cfg), "--out", str(tmp_path / "a.pt2")] + flags)
     assert not (tmp_path / "a.pt2").exists()
+
+
+def test_the_programs_outside_the_package_default_to_the_card(monkeypatch, tmp_path):
+    """The twins of ``bench.py``, ``__graft_entry__.py`` and the two gates
+    under ``tools/`` take the card unless told ``device="cpu"``, and raise
+    without one before any work (no run directory is made)."""
+    from fewshot_vit_tpu_torch import bench, graft_entry
+    from fewshot_vit_tpu_torch.tools import learning_probe, precision_check
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (bench.measure, lambda: bench.measure(int8=True), precision_check.run,
+                 lambda: learning_probe.run(str(tmp_path / "lp")), graft_entry.entry):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "lp").exists()
 
 
 def test_the_rest_of_the_auxiliaries_refuse_by_name(tmp_path):
