@@ -9,10 +9,14 @@ Phases, in order; any failure exits non-zero:
   4. hold each kernel against its plain PyTorch version on the card, the
      bare launch of each route writing an output pre-filled with NaN and
      the op (the path every caller takes) beside it, every route asserted:
-     fused MHSA in fp32
-     and bf16 at the SUN-M shape and at a short and a long case, more bf16
-     shapes through the tensor-core route, and a neighbour check (only heads
-     0, 2, 4 computed: heads 1, 3, 5 must stay NaN); Sinkhorn in fp32 at the
+     fused MHSA in fp32 and bf16 at the SUN-M shape, the SUN teacher's,
+     visformer_small's stage 3 (196 tokens, hd 128, batches 32 and 640) and
+     at a short and a long case, fp32 at the eval CLI's batch, more bf16
+     shapes through the tensor-core route, each tensor-core case again on
+     the general route, forced; every fp32 case also against float64, where
+     the kernel may sit at most twice as far as the plain version; and a
+     neighbour check (only heads 0, 2, 4 computed: heads 1, 3, 5 must stay
+     NaN); Sinkhorn in fp32 at the
      SUN-D grid and fcn shapes, a ragged case, the kernel's N limit, the
      packed route's edges (odd batch, N = 16, 17, 32, 33) and 0 and 1
      iterations;
@@ -31,7 +35,11 @@ Phases, in order; any failure exits non-zero:
   7. time both paths (episodes/s in turns: the default routes, the old
      routes forced, the kernel's alternative) and each kernel in turns (old
      route, new route), its plain version and, for MHSA,
-     ``scaled_dot_product_attention`` (a yardstick only) beside the bound;
+     ``scaled_dot_product_attention`` (a yardstick only) beside the bound:
+     every MHSA route that takes the shape (general, tensor core) at the
+     SUN-M, SUN teacher, eval CLI and visformer_small stage-3 shapes, fp32
+     against the 3xTF32 tensor-core bound with the CUDA-core one beside it;
+     then phase 37;
   8. SUN-D meta-tuning (``train.meta_tune_emd``'s own functions): the
      geometry of ``configs/sund_mini_visformer_1shot.yaml`` (grid, 5-way
      1-shot 15-query, ``bs`` 2, fp32) with ``solver: sinkhorn_pallas``, 4
@@ -208,7 +216,16 @@ Phases, in order; any failure exits non-zero:
      (fp32, SGD) with column-parallel wide layers, held to one rank's steps
      by the trainer rules bound to the update; MHSA launches per rank.
      The rank processes of 35 and 36 run beside phases 33-34;
- 37. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
+ 37. (right after phase 7) ``visformer_small`` at 224 px, whose stage 3
+     takes the MHSA kernel's general route in both dtypes: SUN-M
+     episodes (64, 8 a batch), BN statistics from the split, then folded,
+     one launch per stage-3 block and batch; logits of the kernel path held
+     to an exact (stage 3 in float64) attention path within twice the plain
+     path's distance plus 1e-6 in fp32, which a control with one TF32
+     product must break; at most 1% of episodes differing from the plain
+     path; bf16 logits off the fp32 path by at most twice what plain bf16
+     attention is, plus 1e-2, and the bf16 accuracy rule;
+ 38. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
      ``slice10``, ``slice11`` and kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
@@ -242,11 +259,15 @@ SUND_TIMED = 32
 SFC_KW = {"steps": 20, "lr": 100.0, "batch_size": 4}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+# fp32 as 3xTF32 on the tensor cores (the MHSA general route's arithmetic):
+# three products at the dense TF32 rate for each fp32 one
+PEAK_3XTF32 = 494.7e12 / 3
 # special-function units: 16 exp2/log2 results per clock per SM on compute
 # capability 9.0 (NVIDIA's arithmetic-throughput table), 132 SMs at the
 # 1.98 GHz boost clock
 SFU_PER_S = 132 * 16 * 1.98e9
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+MHSA_ROUTES = ("general", "tensor_core")
 SINKHORN_TOL = 1e-4
 ENCODER = "visformer_micro_80"
 # the geometry of configs/sund_mini_visformer_1shot.yaml, on the kernel's solver
@@ -334,6 +355,10 @@ HEAD_NAMES = ("token-label-ep", "token-label-ep-rw", "token-label-ep-cr", "token
 HEAD_E = 4                  # episodes a forward (ep-cr's attention: 1.6 GB in fp32)
 HEAD_BATCHES = 4            # forwards per (head, shot) in the fp32 kernel-vs-plain check
 VIS_N = 16
+# phase 37: visformer_small at 224 px (the general route's stage 3)
+SMALL224 = {"n_classes": 10, "n_per_class": 40, "image_size": 224, "seed": 10}
+SMALL224_EPISODES = 64
+SMALL224_EXACT = 4          # batches of the float64-attention path
 VIS_DATA = {"n_classes": 4, "n_per_class": 8, "image_size": 80, "seed": 9}
 
 
@@ -364,17 +389,18 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(b, h, t, hd, dtype):
+def _bound(b, h, t, hd, dtype, peak=None):
     """Least time for one attention call: q, k, v read once and o written once
     over the memory rate, or 4*T*T*hd flops per (b, h) over the peak rate for
-    the dtype, whichever is larger."""
+    the dtype (or ``peak``, FLOP/s), whichever is larger. fp32 has two: on the
+    CUDA cores (PEAK_FLOPS) and as 3xTF32 on the tensor cores (PEAK_3XTF32)."""
     import torch
 
     elem = torch.empty((), dtype=dtype).element_size()
     bytes_ = 4 * b * h * t * hd * elem
     flops = 4 * b * h * t * t * hd
     by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    by_ops = flops / (peak or PEAK_FLOPS[str(dtype)]) * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
@@ -412,7 +438,8 @@ def _check_mhsa(gen, dev, b_main):
     """Phase 4, fused MHSA: kernel vs plain version, every case through heads
     split out of a packed qkv tensor. The bare launch writes a (B, T, H, hd)
     view that starts as NaN, so an unwritten element cannot pass; the op,
-    called beside it, allocates its own output. Returns max|d| per case."""
+    called beside it, allocates its own output. A tensor-core case runs again
+    on the general route, forced. Returns max|d| per case."""
     import torch
 
     from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
@@ -422,6 +449,10 @@ def _check_mhsa(gen, dev, b_main):
     cases = [("stage2", b_main, 6, 100, 42, (f32, bf16)), ("short", b_main, 6, 25, 85, (f32, bf16)),
              # the SUN teacher's and the pretrain validation's shape: batch 512
              ("sun teacher", PRE_TRAIN["batch_size"], 6, 100, 42, (f32, bf16)),
+             # the eval CLI's batch of 8 episodes in fp32; visformer_small's stage 3 at 224 px
+             ("eval cli", CLI_EP_PER_BATCH * WAY * (SHOT + QUERY), 6, 100, 42, (f32,)),
+             ("small stage 3", 32, 6, 196, 128, (f32, bf16)),
+             ("small stage 3 x20", 640, 6, 196, 128, (f32, bf16)),
              ("long", 64, 4, 512, 128, (f32, bf16)),
              # bf16 only: the tensor-core route's edges
              ("one token", 3, 1, 1, 1, (bf16,)), ("odd", 2, 3, 33, 97, (bf16,)),
@@ -450,13 +481,33 @@ def _check_mhsa(gen, dev, b_main):
                   f"{route} route")
             if not ok:
                 _fail(f"fused_mhsa disagrees with its plain version at {name} {dtype}")
+            if dtype == f32:  # the kernel and the plain version against float64
+                n = min(b, 64)
+                s64 = torch.einsum("bhqd,bhkd->bhqk", q[:n].double(), k[:n].double()) * hd ** -0.5
+                exact = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s64, -1), v[:n].double())
+                d_kernel = max((o[:n].double() - exact).abs().max().nan_to_num(float("inf")).item()
+                               for o in (out.transpose(1, 2), got))
+                d_plain = (want[:n].double() - exact).abs().max().item()
+                errs[(name, "float64")] = {"kernel": d_kernel, "plain": d_plain}
+                print(f"  against float64 (first {n} of the batch): kernel {d_kernel:.3e}, "
+                      f"plain fp32 {d_plain:.3e}")
+                if not d_kernel <= 2 * d_plain:
+                    _fail(f"fused_mhsa {name} fp32 is {d_kernel:.3e} from float64, more than "
+                          f"twice the plain version's {d_plain:.3e}")
+                del s64, exact
             if route == "tensor_core":  # the general route on the same inputs
                 out.fill_(float("nan"))
+                before = fused_mhsa.route_launches["general"]
                 mhsa_mod._launch(q, k, v, out.transpose(1, 2), hd ** -0.5, "general")
                 got = fused_mhsa(q, k, v, hd ** -0.5, route="general")
+                torch.cuda.synchronize()
                 err = max(_max_err(o, want) for o in (out.transpose(1, 2), got))
+                if fused_mhsa.route_launches["general"] != before + 2:
+                    _fail(f"fused_mhsa {name} {dtype}: the forced general route was not "
+                          f"launched twice")
                 if not err <= TOL[str(dtype)]:
-                    _fail(f"fused_mhsa (general route forced) disagrees at {name}: {err:.3e}")
+                    _fail(f"fused_mhsa (general route forced) disagrees at {name} {dtype}: "
+                          f"{err:.3e}")
             del qkv, q, k, v, out, got, want
 
     # neighbour check at the stage-2 shape: only heads 0, 2, 4 are computed,
@@ -574,7 +625,7 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
         if sk != n_batches or mhsa != 2 * n_batches:
             _fail(f"SUN-D {label}: expected {n_batches} sinkhorn_pallas and "
                   f"{2 * n_batches} fused_mhsa launches, counted {sk} and {mhsa}")
-        if routes != {"fused_mhsa": {"general": 0, "tensor_core": mhsa},
+        if routes != {"fused_mhsa": _mhsa_counts(mhsa, "tensor_core"),
                       "sinkhorn_pallas": {"general": 0, "packed": sk}}:
             _fail(f"SUN-D {label}: launches left the tensor-core and packed routes: {routes}")
         if accs.shape != (n,) or not ((accs >= 0) & (accs <= 1)).all():
@@ -759,7 +810,7 @@ def _train_sund(dev, ds, images_dev, val_ds, tag, profile, card):
           f"{train_counts}, {wall:.2f} s, peak memory {peak:.2f} GiB")
     if not np.isfinite(losses).all():
         _fail(f"SUN-D meta-tuning: a loss is not finite: {losses}")
-    if train_counts != {"fused_mhsa": {"general": 0, "tensor_core": 0},
+    if train_counts != {"fused_mhsa": _mhsa_counts(0, "general"),
                         "sinkhorn_pallas": {"general": 0, "packed": n_train}}:
         _fail(f"SUN-D meta-tuning: expected {n_train} packed Sinkhorn launches (one per "
               f"training episode) and no MHSA launch, counted {train_counts}")
@@ -857,6 +908,8 @@ def _train_sund(dev, ds, images_dev, val_ds, tag, profile, card):
     entry = {"sund_train_episodes_per_s": {**eps, "sinkhorn_pallas_bf16": eps_bf16},
              "sund_train_peak_gib": peak, "sund_train_losses": losses.tolist(),
              "sund_val_acc": va}
+    # per route, as the other paths' counts: the check above left all on the general route
+    val_counts["fused_mhsa"] = _mhsa_counts(val_counts["fused_mhsa"], "general")
     return entry, {"sund_meta_tune": train_counts, "sund_validation": val_counts}
 
 
@@ -923,8 +976,7 @@ def _train_sunm(dev, ds, images_dev, val_ds, tag, profile, card):
         torch.cuda.synchronize()
         routes = dict(fused_mhsa.route_launches)
         n_mhsa = len(head.encoder.stage2) * n_val_batches  # per stage-2 block and eval batch
-        want = ({"general": 0, "tensor_core": n_mhsa} if dtype == torch.bfloat16
-                else {"general": n_mhsa, "tensor_core": 0})
+        want = _mhsa_counts(n_mhsa, "tensor_core" if dtype == torch.bfloat16 else "general")
         print(f"SUN-M validation after training {dtype}: {SUNM_VAL_EPISODES} episodes, "
               f"acc={acc * 100:.2f} +- {ci * 100:.2f} %, fused_mhsa launches {routes}")
         if routes != want or sinkhorn_pallas.launches:
@@ -1098,8 +1150,13 @@ def _check_launches(label, counts, mhsa_route, n_mhsa, n_sinkhorn=0):
     launches on ``mhsa_route`` and ``n_sinkhorn`` packed Sinkhorn launches,
     no other."""
     return _check_counts(label, counts, {
-        "fused_mhsa": {r: (n_mhsa if r == mhsa_route else 0) for r in ("general", "tensor_core")},
+        "fused_mhsa": _mhsa_counts(n_mhsa, mhsa_route),
         "sinkhorn_pallas": {"general": 0, "packed": n_sinkhorn}})
+
+
+def _mhsa_counts(n, route):
+    """fused_mhsa's launches per route: ``n`` on ``route``, 0 on the others."""
+    return {r: (n if r == route else 0) for r in MHSA_ROUTES}
 
 
 def _check_counts(label, counts, want):
@@ -3334,19 +3391,18 @@ def _slice10(dev, tmp, pth, tag):
             _fail(f"gloo rank {r['rank']}: backend {r['backend']} on {r['device']}")
         print(f"mesh {tag}: rank {r['rank']}: {r['describe']}; gloo with cuda:0 tensors: "
               f"{r['gloo_cuda_probe']}")
-    routes = lambda n, route: {r: (n if r == route else 0) for r in ("general", "tensor_core")}
     n_eval = MESH_EPISODES // CLI_EP_PER_BATCH
     n_emd = MESH_EMD_EPISODES // CLI_EP_PER_BATCH
     expect = {  # per rank: the same batches as one rank, half the episodes in each
-        "eval_bf16": {"fused_mhsa": routes(per * n_eval, "tensor_core"),
+        "eval_bf16": {"fused_mhsa": _mhsa_counts(per * n_eval, "tensor_core"),
                       "sinkhorn_pallas": {"general": 0, "packed": 0}},
-        "run_emd_bf16": {"fused_mhsa": routes(per * n_emd, "tensor_core"),
+        "run_emd_bf16": {"fused_mhsa": _mhsa_counts(per * n_emd, "tensor_core"),
                          "sinkhorn_pallas": {"general": 0, "packed": n_emd}},
-        "sund_step": {"fused_mhsa": routes(0, "general"),
+        "sund_step": {"fused_mhsa": _mhsa_counts(0, "general"),
                       "sinkhorn_pallas": {"general": 0, "packed": 1}},
-        "sun_step": {"fused_mhsa": routes(per, "general"),
+        "sun_step": {"fused_mhsa": _mhsa_counts(per, "general"),
                      "sinkhorn_pallas": {"general": 0, "packed": 0}},
-        "serve": {"fused_mhsa": routes(per, "general"),
+        "serve": {"fused_mhsa": _mhsa_counts(per, "general"),
                   "sinkhorn_pallas": {"general": 0, "packed": 0}},
     }
     for name, want in expect.items():
@@ -3447,6 +3503,179 @@ def _bf16_rule(label, accs_tc, accs_gen, accs_plain):
             _fail(f"{label} bf16 {name}: {pairs[name]} (allowed share {allowed:.4f}, "
                   f"mean|dacc| 0.005)")
     return pairs
+
+
+def _visformer_small(dev, tag):
+    """Phase 37: the registered ``visformer_small`` at 224 px, whose stage 3
+    (14 x 14 = 196 tokens, 6 heads of 128) takes the MHSA kernel's general
+    route in both dtypes; stage 2 (784 tokens) stays on the einsum, as in
+    JAX. Seeded weights with BN statistics taken from the split's images (one
+    training-mode forward, momentum 1; at the initial statistics 15 blocks of
+    unnormalised activations amplify fp32 rounding until the plain path's
+    logits sit 1e-2 from exact attention's), then BN folded. SUN-M episodes
+    (5-way 1-shot 15-query, 8 a batch), logits taken batch by batch on the
+    kernel and the plain fp32 paths, and on the first ``SMALL224_EXACT``
+    batches on an exact one (stage 3's attention in float64, stage 2 as on
+    the other paths) and on a control with one TF32 product in each of
+    stage 3's attention products. Held in fp32: the kernel's logits off the
+    exact path's by at most twice what the plain path's are, plus 1e-6; the
+    control must break that rule, or the rule cannot tell 3xTF32 from one
+    TF32 product; against the plain path at most 1% of episodes differ and
+    mean |dacc| at most 0.005 (PERF.md's accuracy rule). bf16 logits off
+    the fp32 plain path's by at most twice what the plain bf16 path's are,
+    plus 1e-2 (the encoder rule of ``tests/test_torch_cuda.py``), and the
+    bf16 accuracy rule against the plain bf16 path. One launch per stage-3
+    block and batch, general route. Returns the results and the fp32 kernel
+    run's launches per route."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core.registry import datasets, models
+    from fewshot_vit_tpu_torch.data.transforms import normalize
+    from fewshot_vit_tpu_torch.eval.episodic import sample_episode_indices
+    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.models import common, visformer
+    from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
+    from fewshot_vit_tpu_torch.ops.episodes import make_nk_label, split_shot_query
+    from fewshot_vit_tpu_torch.ops.metric import per_episode_acc
+
+    t0 = time.perf_counter()
+    ds = datasets.make("synthetic", **SMALL224)
+    images = torch.from_numpy(ds.images).to(dev)
+    per = visformer._VARIANTS["visformer_small"]["depth"][2]  # stage-3 blocks
+    idx = torch.from_numpy(np.asarray(sample_episode_indices(
+        ds, SMALL224_EPISODES, WAY, SHOT + QUERY, CLI_EP_PER_BATCH, 5), np.int64)).to(dev)
+    labels = make_nk_label(WAY, QUERY, CLI_EP_PER_BATCH, device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def make(dtype, fused):
+        return models.make("meta-baseline", encoder="visformer_small", dtype=dtype, device=dev,
+                           encoder_args={"use_pallas_attn": fused}, seed=0)
+
+    calib = make(f32, False).train()
+    momentum, common.BN_MOMENTUM = common.BN_MOMENTUM, 1.0  # running statistics := the batch's
+    try:
+        with torch.no_grad():  # about 128 images of every class
+            calib.encoder(normalize(images[::max(1, len(images) // 128)], ds.mean, ds.std))
+    finally:
+        common.BN_MOMENTUM = momentum
+    state = calib.state_dict()
+    del calib
+
+    def head_for(dtype, fused):
+        head = make(dtype, fused)
+        head.load_state_dict(state)
+        return fold_encoder_in_head(head.eval())
+
+    def logits(head, batches=None):  # (batches, episodes * way * query, way) in fp32
+        with torch.no_grad():
+            return torch.stack([
+                head(*split_shot_query(normalize(images[b], ds.mean, ds.std), WAY, SHOT, QUERY,
+                                       CLI_EP_PER_BATCH)).float()
+                for b in idx[:batches]])
+
+    def accs(lg):
+        return torch.stack([per_episode_acc(x, labels) for x in lg]).reshape(-1).cpu().numpy()
+
+    def pair(a, b):  # episodes differing, mean |dacc|
+        a, b = accs(a), accs(b)
+        return {"episodes_differing": float((a != b).mean()),
+                "mean_abs_d_acc": float(abs(a - b).mean())}
+
+    def exact_attention(q, k, v, scale, use_pallas=True):  # stage 3 in float64
+        if q.shape[1] > mhsa_mod.MAX_TOKENS:  # stage 2: the einsum, as on the other paths
+            return real(q, k, v, scale, use_pallas=use_pallas)
+        return real(q.double(), k.double(), v.double(), scale, use_pallas=False).to(q.dtype)
+
+    def tf32_attention(q, k, v, scale, use_pallas=True):  # stage 3: one TF32 product each
+        if q.shape[1] > mhsa_mod.MAX_TOKENS:
+            return real(q, k, v, scale, use_pallas=use_pallas)
+        allow, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, True
+        try:
+            return real(q, k, v, scale, use_pallas=False)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+
+    def kernel_run(head, dname):
+        logits(head, 1)  # warm this head's shapes
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t1 = time.perf_counter()
+        lg = logits(head)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = _expect_counts(f"visformer_small {dname}", "general", per * len(idx))
+        return lg, secs, counts["fused_mhsa"]
+
+    out = {"episodes": SMALL224_EPISODES}
+    kernel = head_for(f32, True)
+    lg_k, secs, launches = kernel_run(kernel, "float32")
+    lg_p = logits(head_for(f32, False))
+    real = visformer.attention_core
+    try:
+        visformer.attention_core = exact_attention
+        lg_e = logits(kernel, SMALL224_EXACT)
+        visformer.attention_core = tf32_attention
+        lg_c = logits(kernel, SMALL224_EXACT)
+    finally:
+        visformer.attention_core = real
+    n_e = len(lg_e)
+    d_exact = (lg_k[:n_e] - lg_e).abs().max().item()
+    d_plain = (lg_p[:n_e] - lg_e).abs().max().item()
+    d_control = (lg_c - lg_e).abs().max().item()
+    allowed = 2 * d_plain + 1e-6
+    res = {"episodes_per_s": SMALL224_EPISODES / secs, "acc": float(accs(lg_k).mean()),
+           "launches": launches, "kernel_vs_exact_max_abs_d_logits": d_exact,
+           "plain_vs_exact_max_abs_d_logits": d_plain, "allowed_max_abs_d_logits": allowed,
+           "tf32_control_vs_exact_max_abs_d_logits": d_control,
+           "kernel_vs_plain_max_abs_d_logits": (lg_k - lg_p).abs().max().item(),
+           "kernel_vs_plain": pair(lg_k, lg_p), "kernel_vs_exact": pair(lg_k[:n_e], lg_e),
+           "plain_vs_exact": pair(lg_p[:n_e], lg_e), "tf32_control_vs_exact": pair(lg_c, lg_e)}
+    print(f"visformer_small {tag} fp32: {SMALL224_EPISODES} episodes at 224 px, "
+          f"{res['episodes_per_s']:.2f} episodes/s, acc {res['acc']:.4f}, launches {launches}; "
+          f"logits max|d| against the exact path: kernel {d_exact:.3e}, plain {d_plain:.3e} "
+          f"(allowed {allowed:.3e}), one-TF32 control {d_control:.3e} (must exceed it), "
+          f"kernel vs plain {res['kernel_vs_plain_max_abs_d_logits']:.3e}; episodes differing, "
+          f"kernel vs plain {res['kernel_vs_plain']}, kernel vs exact {res['kernel_vs_exact']}, "
+          f"plain vs exact {res['plain_vs_exact']}, control vs exact "
+          f"{res['tf32_control_vs_exact']}")
+    if not (d_exact <= allowed and res["kernel_vs_plain"]["episodes_differing"] <= 0.01
+            and res["kernel_vs_plain"]["mean_abs_d_acc"] <= 0.005):
+        _fail(f"visformer_small fp32: kernel path against plain path: {res}")
+    if not d_control > allowed:
+        _fail(f"visformer_small fp32: the one-TF32 control passes the logits rule "
+              f"({d_control:.3e} <= {allowed:.3e}): the rule does not discriminate")
+    out["float32"] = res
+    del kernel
+
+    kernel = head_for(bf16, True)
+    lg_k16, secs, launches16 = kernel_run(kernel, "bfloat16")
+    lg_p16 = logits(head_for(bf16, False))
+    d_plain = (lg_p16 - lg_p).abs().max().item()
+    allowed = 2 * d_plain + 1e-2
+    res = {"episodes_per_s": SMALL224_EPISODES / secs, "acc": float(accs(lg_k16).mean()),
+           "launches": launches16, "plain_bf16_vs_fp32_max_abs_d_logits": d_plain,
+           "general_vs_fp32_max_abs_d_logits": (lg_k16 - lg_p).abs().max().item(),
+           "general_vs_plain": pair(lg_k16, lg_p16), "plain_bf16_vs_fp32": pair(lg_p16, lg_p)}
+    print(f"visformer_small {tag} bf16: {res['episodes_per_s']:.2f} episodes/s, acc "
+          f"{res['acc']:.4f}, launches {launches16}; logits max|d| against the fp32 plain path: "
+          f"general {res['general_vs_fp32_max_abs_d_logits']:.3e}, plain bf16 {d_plain:.3e} "
+          f"(allowed {allowed:.3e}); episodes differing, general vs plain bf16 "
+          f"{res['general_vs_plain']}, plain bf16 vs fp32 {res['plain_bf16_vs_fp32']}")
+    # the bf16 accuracy rule: any two bf16 attention paths may differ on the
+    # share where plain bf16 and plain fp32 differ, plus 1%
+    share = res["plain_bf16_vs_fp32"]["episodes_differing"] + 0.01
+    if not (res["general_vs_fp32_max_abs_d_logits"] <= allowed
+            and res["general_vs_plain"]["episodes_differing"] <= share
+            and res["general_vs_plain"]["mean_abs_d_acc"] <= 0.005):
+        _fail(f"visformer_small bf16: the general route's logits: {res}")
+    out["bfloat16"] = res
+    del kernel, images
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 37 (visformer_small) {tag}: {out['s']:.1f} s")
+    return out, launches
 
 
 def _bench_phase(dev, tag):
@@ -3856,7 +4085,7 @@ def main() -> int:
           f"fused_mhsa launches={launches} ({n_batches} batches), by route {routes}")
     if launches != 2 * n_batches:
         _fail(f"expected {2 * n_batches} fused_mhsa launches, counted {launches}")
-    if routes != {"general": 0, "tensor_core": launches}:
+    if routes != _mhsa_counts(launches, "tensor_core"):
         _fail(f"the main path's fused_mhsa launches left the tensor-core route: {routes}")
     if accs.shape != (N_EPISODES,) or not ((accs >= 0) & (accs <= 1)).all():
         _fail(f"episode accuracies malformed: shape {accs.shape}")
@@ -3899,52 +4128,94 @@ def main() -> int:
           f"general route forced: {eps['old']} "
           f"({N_TIMED} episodes at ep_per_batch {EP_PER_BATCH})")
 
-    kernels, sun_teacher = [], {}
-    h, t, hd = 6, 100, 42
-    for shape, b, dtype in (("stage2", b_main, torch.bfloat16), ("stage2", b_main, torch.float32),
-                            ("sun teacher", PRE_TRAIN["batch_size"], torch.float32),
-                            ("sun teacher", PRE_TRAIN["batch_size"], torch.bfloat16)):
+    # every route of fused_mhsa that takes the shape, in turns with SDPA: the
+    # general route, and the tensor-core route where it applies
+    kernels, sun_teacher, mhsa_rows = [], {}, []
+    f32, bf16 = torch.float32, torch.bfloat16
+    h = 6
+    for shape, b, t, hd, dtype in (
+            ("stage2", b_main, 100, 42, bf16), ("stage2", b_main, 100, 42, f32),
+            ("sun teacher", PRE_TRAIN["batch_size"], 100, 42, f32),
+            ("sun teacher", PRE_TRAIN["batch_size"], 100, 42, bf16),
+            ("eval cli", CLI_EP_PER_BATCH * WAY * (SHOT + QUERY), 100, 42, f32),
+            ("small stage 3", 32, 196, 128, bf16), ("small stage 3", 32, 196, 128, f32),
+            # 20 times the work: the device's time, which the launch's host
+            # time hides at batch 32
+            ("small stage 3 x20", 640, 196, 128, bf16), ("small stage 3 x20", 640, 196, 128, f32)):
         qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
         q, k, v = qkv.unbind(2)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         scale = hd ** -0.5
         route = mhsa_mod.mhsa_route(qt)
-        times = {"old": [], "new": [], "sdpa": []}
-        for which in ("old", "new", "sdpa", "sdpa", "new", "old"):
+        order = ("general", *(("tensor_core",) if route == "tensor_core" else ()), "sdpa")
+        times = {which: [] for which in order}
+        for which in order + order[::-1]:
             if which == "sdpa":
                 times[which].append(_time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, scale=scale)))
             else:
-                with mhsa_mod.force_route("general" if which == "old" else None):
+                with mhsa_mod.force_route(which):
                     times[which].append(_time_ms(lambda: attention_core(q, k, v, scale)))
-        ms, prev_ms, lib_ms = (sum(times[w]) / 2 for w in ("new", "old", "sdpa"))
+        ms_of = {which: sum(x) / 2 for which, x in times.items()}
+        ms, general_ms, lib_ms = (ms_of[w] for w in (route, "general", "sdpa"))
         plain_ms = _time_ms(lambda: fused_mhsa_reference(qt, kt, vt, scale))
-        bound_ms, bound_by = _bound(b, h, t, hd, dtype)
+        # fp32: the lower of the CUDA-core and the 3xTF32 bound, the old one beside it
+        cuda_core_ms = _bound(b, h, t, hd, dtype)[0]
+        bound_ms, bound_by = min(_bound(b, h, t, hd, dtype),
+                                 _bound(b, h, t, hd, dtype, PEAK_3XTF32 if dtype == f32 else None))
+        dname = str(dtype).split(".")[1]
         print(f"timing {tag}: fused_mhsa {shape} ({b},{h},{t},{hd}) {dtype}: kernel {ms:.4f} ms "
-              f"({route} route; {times['new']}), general route {prev_ms:.4f} ms ({times['old']}), "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({times['sdpa']}), "
-              f"bound {bound_ms:.4f} ms ({bound_by}); kernel/bound {ms / bound_ms:.2f}")
+              f"({route} route), general {general_ms:.4f} ms "
+              f"({times}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})"
+              + (f", CUDA-core bound {cuda_core_ms:.4f} ms" if dtype == f32 else "")
+              + f"; kernel/bound {ms / bound_ms:.2f}, general/bound {general_ms / bound_ms:.2f}")
+        row = {"case": shape, "shape": [b * h, t, hd], "dtype": dname, "kernel_route": route,
+               "ms": ms, "general_ms": general_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+               "max_abs_err": errs[(shape, str(dtype))]}
+        if dtype == f32:
+            row["cuda_core_bound_ms"] = cuda_core_ms
+            row["float64_max_abs_err"] = errs[(shape, "float64")]
+        mhsa_rows.append(row)
         if shape == "sun teacher":  # the SUN teacher's and pretrain validation's shape
-            sun_teacher[str(dtype).split(".")[1]] = {
+            sun_teacher[dname] = {
                 "kernel_route": route, "max_abs_err": errs[(shape, str(dtype))], "ms": ms,
-                "general_route_ms": prev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms}
-        elif dtype == torch.bfloat16:  # the main path's dtype
-            if not (ms < lib_ms and ms < prev_ms):
+                "general_route_ms": general_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+        elif shape == "stage2" and dtype == bf16:  # the main path's
+            if not (ms < lib_ms and ms < general_ms):
                 _fail(f"the tensor-core fused_mhsa ({ms:.3f} ms) is not faster than sdpa "
-                      f"({lib_ms:.3f} ms) and the general route ({prev_ms:.3f} ms)")
+                      f"({lib_ms:.3f} ms) and the general route ({general_ms:.3f} ms)")
             kernels.append({
-                "name": "fused_mhsa", "route": "cuda",
+                "name": "fused_mhsa", "kernel": "mhsa_tc_kernel", "route": "cuda",
                 "source": "fewshot_vit_tpu_torch/csrc/mhsa.cu",
                 "replaces": "fewshot_vit_tpu/kernels/attention.py:54",
                 "launches": launches, "kernel_route": route, "route_launches": routes,
                 "max_abs_err": errs[("stage2", str(dtype))],
-                "ms": ms, "prev_ms": prev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms,
+                "ms": ms, "general_route_ms": general_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms,
             })
         del qkv, q, k, v, qt, kt, vt
-    kernels[0]["sun_teacher"] = {"shape": [PRE_TRAIN["batch_size"] * h, t, hd], **sun_teacher}
+    kernels[0]["sun_teacher"] = {"shape": [PRE_TRAIN["batch_size"] * h, 100, 42], **sun_teacher}
+    # phase 37: the general route's own path
+    general, general_launches = _visformer_small(dev, tag)
+    # its headline row: the fp32 SUN teacher's shape, which the route serves
+    head_row = next(r for r in mhsa_rows if r["case"] == "sun teacher" and r["dtype"] == "float32")
+    kernels.append({
+        "name": "fused_mhsa", "kernel": "mhsa_general_kernel", "route": "cuda",
+        "source": "fewshot_vit_tpu_torch/csrc/mhsa.cu",
+        "replaces": "fewshot_vit_tpu/kernels/attention.py:54",
+        "launches": general_launches["general"], "kernel_route": "general",
+        "route_launches": general_launches, "launches_path": "phase 37, visformer_small",
+        "max_abs_err": head_row["max_abs_err"], "shape": head_row["shape"], "ms": head_row["ms"],
+        "plain_ms": head_row["plain_ms"],
+        "bound_ms": head_row["bound_ms"], "bound_by": head_row["bound_by"],
+        "cuda_core_bound_ms": head_row["cuda_core_bound_ms"],
+        "library_ms": head_row["library_ms"], "rows": mhsa_rows, "visformer_small": general,
+    })
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -4064,27 +4335,25 @@ def main() -> int:
         # phases 32-36: the bench entry, the two gates, the graft entry points, the model axis
         slice11, slice11_launches = _slice11(dev, tmp, tag)
     for entry in kernels:
-        entry["train_launches"] = {
-            path: (c[entry["name"]] if isinstance(c[entry["name"]], int)
-                   else sum(c[entry["name"]].values()))
-            for path, c in train_launches.items()}
-        entry["eval_cli_launches"] = {path: sum(c[entry["name"]].values())
-                                      for path, c in eval_launches.items()}
+        def count(c, entry=entry):  # a fused_mhsa entry counts its own route's launches
+            n = c[entry["name"]]
+            if isinstance(n, int):
+                return n
+            return n[entry["kernel_route"]] if entry["name"] == "fused_mhsa" else sum(n.values())
+
+        entry["train_launches"] = {path: count(c) for path, c in train_launches.items()}
+        entry["eval_cli_launches"] = {path: count(c) for path, c in eval_launches.items()}
         # the encoder zoo reaches no kernel, in either package
-        entry["zoo_launches"] = {path: sum(c[entry["name"]].values())
-                                 for path, c in zoo_launches.items()}
-        entry["slice8_launches"] = {path: sum(c[entry["name"]].values())
-                                    for path, c in slice8_launches.items()}
-        entry["slice9_launches"] = {path: sum(c[entry["name"]].values())
-                                    for path, c in slice9_launches.items()}
+        entry["zoo_launches"] = {path: count(c) for path, c in zoo_launches.items()}
+        entry["slice8_launches"] = {path: count(c) for path, c in slice8_launches.items()}
+        entry["slice9_launches"] = {path: count(c) for path, c in slice9_launches.items()}
         # per rank: the mesh paths launch both kernels on every rank
-        entry["slice10_launches"] = {path: {r: sum(c[entry["name"]].values())
-                                            for r, c in per_rank.items()}
+        entry["slice10_launches"] = {path: {r: count(c) for r, c in per_rank.items()}
                                      for path, per_rank in slice10_launches.items()}
         # phase 36's paths per rank, the others in this process
         entry["slice11_launches"] = {
-            path: ({r: sum(rc[entry["name"]].values()) for r, rc in c.items()}
-                   if path.startswith("model2_") else sum(c[entry["name"]].values()))
+            path: ({r: count(rc) for r, rc in c.items()} if path.startswith("model2_")
+                   else count(c))
             for path, c in slice11_launches.items()}
     clis["zoo"] = zoo_eval
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -15,7 +15,9 @@
 // tensor map over the per-head view apply. With tensor-core products the
 // arithmetic is a sixth of that time; what holds the kernel above its bound is
 // the 4-byte load path (see below), which alone takes longer than the bound
-// at that shape.
+// at that shape. In fp32 the rows are 168 bytes, 8-byte aligned, and the
+// three TF32 products of a 3xTF32 product (below) put the arithmetic near the
+// bytes: about 25 flops per byte against the TF32 tensor cores' ~148 / 3.
 //
 // Two routes, chosen by the Python wrapper (kernels/attention.py) from dtype
 // and shape, never silently:
@@ -55,15 +57,56 @@
 //      normalised by one reciprocal. Both errors are far below the bf16
 //      rounding of the probabilities that follows.
 //
-// 2. General route (mhsa_kernel): fp32 at any shape (TF32 products would
-//    break the 1e-4 agreement with the plain version) and bf16 with T > 128,
-//    up to T = 512. fp32 FMAs on the CUDA cores. One CTA of 8 warps per
-//    (batch*head, tile of 64 query rows); each warp owns 8 rows. The q tile
-//    is staged in shared memory as fp32, then K and then V in chunks of 32
-//    keys; a row's scores for all keys stay in shared memory, so the softmax
-//    is the exact max / exp / sum / divide, not an online rescaling. Global
-//    rows are staged with scalar loads; ragged edges are zero-filled in
-//    shared memory and their keys masked with -inf scores.
+// 2. General route (mhsa_general_kernel): fp32 at any shape, and bf16 with
+//    T > 128, up to T = 512 and hd = 128. Both products on the tensor cores
+//    with mma.sync, one warp per 16 query rows:
+//    - bf16: m16n8k16 bf16 -> fp32, fragments through ldmatrix as in route 1.
+//    - fp32: 3xTF32 on m16n8k8.tf32. Each operand x is split into hi, x
+//      rounded to TF32 (round to nearest, ties away, as cvt.rna rounds, in
+//      two integer instructions), and lo = x - hi, which the tensor cores
+//      read truncated to TF32; a product is lo*hi + hi*lo + hi*hi, the
+//      dropped lo*lo term below 2^-21 of it, while one TF32 product (2^-11)
+//      breaks the 1e-4 agreement with the plain version. Each k-step's
+//      three products are summed from zero and added to the running sum by
+//      fp32 adds. Measured on the H100: the tensor cores' fp32 accumulation
+//      truncates, and with every k-step chained into the running sum on the
+//      tensor cores the output sat several times further from float64 than
+//      the plain fp32 version; neither ex2.approx nor rounding lo (instead
+//      of truncating it) moved that. With the adds it sits closer to float64
+//      than the plain version (chip_smoke.py phase 4 prints both and holds
+//      it), as the plain-torch model of this arithmetic in
+//      tests/test_torch_mhsa_general.py does against the TPU kernel in
+//      interpret mode; the adds cost time (PERF.md). cvt.rna for both parts
+//      of the split ran slower. The k index of every
+//      fp32 mma is permuted inside each k-step of 8 (operand column c stands
+//      for element 2c, column c + 4 for element 2c + 1): then a thread's
+//      q and k pairs are one 8-byte shared-memory load each, and the
+//      accumulator layout of S is the A-operand layout of P.V, with V's
+//      B fragments read at the same permuted keys.
+//    - Keys are padded to the instantiation's block (64, 104 in fp32, or
+//      128 keys; T = 100 in fp32 pads to 104, the m16n8k8 tile), head dims
+//      to 48, 64, 96 or 128; padded keys get score -inf, padded q and k
+//      columns and padded v rows are zeros in shared memory. No branch
+//      guards an mma: measured on the H100, runtime tile bounds in the
+//      loops cost more than the padding.
+//    - T <= 128: one CTA covers all of T for a head (7 warps at T = 100),
+//      K and V are staged once per head and each warp keeps its 16 x T score
+//      block in registers: the exact max / exp / sum / normalise of route 1.
+//      q and K go in a first cp.async group, V in a second that lands while
+//      the scores are computed.
+//    - 128 < T <= 512: up to 8 warps (128 query rows) a CTA, and keys in
+//      blocks of 64 through a ring of two shared-memory stages. Pass A
+//      computes S block by block for each row's max and sum (a running max,
+//      the sum rescaled when it moves); pass B computes S again and forms
+//      p = 2^(s*c2 - m) / l, rounded to bf16 in bf16, before P.V. The
+//      probabilities are thus normalised before the second product, as the
+//      TPU kernel does, which an online-softmax rescaling of the output
+//      would not keep. Computing QK^T twice makes the arithmetic 1.5x that
+//      of one pass.
+//    - Copies are cp.async of the widest width the pointers, strides and hd
+//      allow (16, 8 or 4 bytes; the wrapper finds it), 2-byte scalar loads
+//      for bf16 where nothing wider fits. Non-persistent grid: the CTAs of
+//      one SM overlap each other's loads and math.
 //
 // Inputs may be strided views: the wrapper passes element strides for
 // (batch, head, token); the last dim must be contiguous.
@@ -73,211 +116,16 @@
 #include <math.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
-// ---- general route ----
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per CTA
-constexpr int kChunk = 32;                    // keys per staged chunk
 constexpr int kMaxTokens = 512;
 constexpr int kMaxHeadDim = 128;
 
 struct Strides {  // element strides of (batch, head, token)
   long long b, h, t;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// dst[r * dst_stride + d] = src[(row0 + r) * src_stride + d] as fp32, for
-// r < nrows and d < width; zero where row0 + r >= n_tok or d >= hd.
-template <typename T>
-__device__ void stage_rows(float* dst, int dst_stride, int width, const T* src,
-                           long long src_stride, int row0, int nrows, int n_tok, int hd) {
-  for (int e = threadIdx.x; e < nrows * width; e += blockDim.x) {
-    const int r = e / width;
-    const int d = e - r * width;
-    const int row = row0 + r;
-    float x = 0.f;
-    if (row < n_tok && d < hd) x = to_f(src[row * src_stride + d]);
-    dst[r * dst_stride + d] = x;
-  }
-}
-
-// NSLOT = ceil(hd / 32): output dims held by each lane in pass 2.
-template <typename T, int NSLOT>
-__global__ void __launch_bounds__(kWarps * 32)
-mhsa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
-            int n_heads, int n_tok, int hd, int n_tiles, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int kWidth = NSLOT * 32;       // staged K/V row width (zero padded)
-  constexpr int kKvStride = kWidth + 1;    // odd: lane-per-key reads hit distinct banks
-  const int hdp = (hd + 3) & ~3;           // q row stride, float4 aligned
-  const int tp = (n_tok + kChunk - 1) / kChunk * kChunk;  // score row stride
-  float* sc = smem;                        // kRows x tp: scores, then probabilities
-  float* qs = sc + kRows * tp;             // kRows x hdp
-  float* kvs = qs + kRows * hdp;           // kChunk x kKvStride
-
-  const int tile = blockIdx.x % n_tiles;
-  const int bh = blockIdx.x / n_tiles;
-  const int b = bh / n_heads;
-  const int h = bh - b * n_heads;
-  const int row0 = tile * kRows;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wrow = warp * kRowsPerWarp;    // first CTA-local row of this warp
-  const bool active = row0 + wrow < n_tok;
-  const int n_chunks = tp / kChunk;
-
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  T* ob = o + b * so.b + h * so.h;
-
-  stage_rows(qs, hdp, hdp, qb, sq.t, row0, kRows, n_tok, hd);
-
-  // pass 1: scores
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();
-    stage_rows(kvs, kKvStride, kWidth, kb, sk.t, c * kChunk, kChunk, n_tok, hd);
-    __syncthreads();
-    if (!active) continue;
-    float acc[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = 0.f;
-    const float* krow = kvs + lane * kKvStride;
-    for (int d = 0; d < hdp; d += 4) {
-      const float k0 = krow[d], k1 = krow[d + 1], k2 = krow[d + 2], k3 = krow[d + 3];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + (wrow + r) * hdp + d);
-        acc[r] = fmaf(qv.x, k0, acc[r]);
-        acc[r] = fmaf(qv.y, k1, acc[r]);
-        acc[r] = fmaf(qv.z, k2, acc[r]);
-        acc[r] = fmaf(qv.w, k3, acc[r]);
-      }
-    }
-    const int key = c * kChunk + lane;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      sc[(wrow + r) * tp + key] = key < n_tok ? acc[r] * scale : -INFINITY;
-  }
-
-  // softmax over each of the warp's rows
-  __syncwarp();
-  if (active) {
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      float* srow = sc + (wrow + r) * tp;
-      float m = -INFINITY;
-      for (int j = lane; j < tp; j += 32) m = fmaxf(m, srow[j]);
-      m = warp_max(m);
-      float s = 0.f;
-      for (int j = lane; j < tp; j += 32) {
-        const float e = expf(srow[j] - m);
-        srow[j] = e;
-        s += e;
-      }
-      s = warp_sum(s);
-      for (int j = lane; j < tp; j += 32) srow[j] = to_f(from_f<T>(srow[j] / s));
-    }
-  }
-
-  // pass 2: o = p v
-  float acc[kRowsPerWarp][NSLOT];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int i = 0; i < NSLOT; ++i) acc[r][i] = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();
-    stage_rows(kvs, kKvStride, kWidth, vb, sv.t, c * kChunk, kChunk, n_tok, hd);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < kChunk; j += 4) {
-      float vv[4][NSLOT];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int i = 0; i < NSLOT; ++i) vv[jj][i] = kvs[(j + jj) * kKvStride + lane + 32 * i];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(sc + (wrow + r) * tp + c * kChunk + j);
-#pragma unroll
-        for (int i = 0; i < NSLOT; ++i) {
-          acc[r][i] = fmaf(p.x, vv[0][i], acc[r][i]);
-          acc[r][i] = fmaf(p.y, vv[1][i], acc[r][i]);
-          acc[r][i] = fmaf(p.z, vv[2][i], acc[r][i]);
-          acc[r][i] = fmaf(p.w, vv[3][i], acc[r][i]);
-        }
-      }
-    }
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + wrow + r;
-    if (row >= n_tok) break;
-#pragma unroll
-    for (int i = 0; i < NSLOT; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) ob[row * so.t + d] = from_f<T>(acc[r][i]);
-    }
-  }
-}
-
-template <typename T, int NSLOT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const long long* st,
-                   int batch, int n_heads, int n_tok, int hd, float scale, cudaStream_t stream) {
-  const int hdp = (hd + 3) & ~3;
-  const int tp = (n_tok + kChunk - 1) / kChunk * kChunk;
-  const size_t smem = sizeof(float) * (size_t(kRows) * tp + size_t(kRows) * hdp +
-                                       size_t(kChunk) * (NSLOT * 32 + 1));
-  cudaError_t err = cudaFuncSetAttribute(mhsa_kernel<T, NSLOT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (n_tok + kRows - 1) / kRows;
-  const long long blocks = (long long)batch * n_heads * n_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
-  const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  mhsa_kernel<T, NSLOT><<<unsigned(blocks), kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, sv, so, n_heads, n_tok, hd, n_tiles, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, const long long* st,
-                     int batch, int n_heads, int n_tok, int hd, float scale, cudaStream_t stream) {
-  switch ((hd + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, stream);
-    case 2: return launch<T, 2>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, stream);
-    case 3: return launch<T, 3>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, stream);
-    default: return launch<T, 4>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, stream);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core route
@@ -673,14 +521,483 @@ cudaError_t tc_dispatch(const void* q, const void* k, const void* v, void* o, co
 #undef TC_HD
 }
 
-// 4-byte accesses need 4-byte aligned pointers, even strides and an even hd
-bool tc_vec_ok(const void* q, const void* k, const void* v, const void* o, const long long* st,
-               int hd) {
-  if (hd & 1) return false;
+// ---------------------------------------------------------------------------
+// General route
+// ---------------------------------------------------------------------------
+
+constexpr int kGenMaxWarps = 8;  // 16 query rows a warp, 128 a CTA
+
+// x = hi + lo. hi: x rounded to TF32, half away from zero as cvt.rna rounds
+// (half a unit of the 13 dropped bits added, then cleared: two integer
+// instructions where cvt.rna takes several). lo = x - hi, exact in fp32; the
+// tensor cores read its top 19 bits (they ignore a TF32 operand's low 13).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: c += a * b, the k-step's lo*hi + hi*lo + hi*hi summed by the
+// tensor cores from zero (the small terms first), then added to c by fp32
+// adds, which round to nearest. The tensor cores' own fp32 accumulation
+// truncates; chaining every k-step's products into c there, the truncations
+// of a long sum add up (see the note at the top).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh[0], bh[1]);
+  mma_tf32(t, ah, bl[0], bl[1]);
+  mma_tf32(t, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// One width-byte copy global -> shared; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async_zfill(unsigned dst, const void* src, int width,
+                                               int src_bytes) {
+  if (width == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else if (width == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes) : "memory");
+}
+
+// Rows [row0, row0 + rows) of one (batch, head)'s q, k or v into shared memory
+// at row stride ds, columns [0, HDP); zeros where the row is >= n_tok or the
+// column >= hd. W: bytes a copy, 16, 8 or 4 by cp.async, or 2 (bf16) by scalar
+// loads; it divides hd * sizeof(T), so a copy is all real or all pad.
+template <typename T, int HDP, int W>
+__device__ __forceinline__ void gen_stage_w(T* dst, int ds, const T* src, long long st, int row0,
+                                            int rows, int n_tok, int hd) {
+  constexpr int kPer = W / int(sizeof(T));  // elements a copy
+  constexpr int kCpr = HDP / kPer;          // copies a row
+  for (int e = threadIdx.x; e < rows * kCpr; e += blockDim.x) {
+    const int r = e / kCpr;
+    const int c = (e - r * kCpr) * kPer;
+    const int row = row0 + r;
+    const bool real = row < n_tok && c < hd;
+    T* d = dst + r * ds + c;
+    const T* from = real ? src + row * st + c : src;
+    if constexpr (W == 2) {
+      *d = real ? *from : __float2bfloat16(0.f);
+    } else {
+      cp_async_zfill(smem_u32(d), from, W, real ? W : 0);
+    }
+  }
+}
+
+template <typename T, int HDP>
+__device__ __forceinline__ void gen_stage(T* dst, int ds, const T* src, long long st, int row0,
+                                          int rows, int n_tok, int hd, int width) {
+  if (width == 16) {
+    gen_stage_w<T, HDP, 16>(dst, ds, src, st, row0, rows, n_tok, hd);
+  } else if (width == 8) {
+    gen_stage_w<T, HDP, 8>(dst, ds, src, st, row0, rows, n_tok, hd);
+  } else if constexpr (sizeof(T) == 4) {
+    gen_stage_w<T, HDP, 4>(dst, ds, src, st, row0, rows, n_tok, hd);
+  } else if (width == 4) {
+    gen_stage_w<T, HDP, 4>(dst, ds, src, st, row0, rows, n_tok, hd);
+  } else {
+    gen_stage_w<T, HDP, 2>(dst, ds, src, st, row0, rows, n_tok, hd);
+  }
+}
+
+// Shapes of one instantiation of the general kernel. NKT: n-tiles of 8 keys a
+// block of keys holds (a warp's scores for it stay in registers); ND8: tiles
+// of 8 head dims (hd <= 8 * ND8). Every loop runs over the whole instantiation
+// (keys padded to 8 * NKT, head dims to 8 * ND8, zeros in shared memory), so
+// no branch guards an mma. Shared-memory row strides, in elements:
+// fp32 q and k at 8 * ND8 + 8 (8 or 24 mod 32 words: the 8-byte fragment
+// loads of a half-warp hit distinct banks), v at 8 * ND8 + 4 (4 mod 8: the
+// scalar B-fragment loads at keys 2 * tig, 2 * tig + 1 do); bf16 all three at
+// 8 * ND8 + 8, an odd number of 16-byte units, for ldmatrix.
+template <typename T, int NKT, int ND8>
+struct GenCfg {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kKeys = NKT * 8;  // keys a block
+  static constexpr int kHdp = ND8 * 8;   // head dims staged
+  static constexpr int kSQ = kHdp + 8;
+  static constexpr int kSK = kSQ;
+  static constexpr int kSV = kF32 ? kHdp + 4 : kSQ;
+  static constexpr int kMinBlocks = (ND8 <= 8 || (!kF32 && NKT == 8)) ? 2 : 1;
+};
+
+// S = Q K^T for the warp's 16 rows against the block's 8 * NKT keys
+template <typename T, int NKT, int ND8>
+__device__ __forceinline__ void gen_scores(float (&s)[NKT][4], const T* qw, const T* ks,
+                                           int lane) {
+  using Cfg = GenCfg<T, NKT, ND8>;
+  constexpr int SQ = Cfg::kSQ, SK = Cfg::kSK;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+  const int g = lane >> 2, tig = lane & 3;
+  if constexpr (Cfg::kF32) {
+    // operand column tig stands for head dim 2 * tig, column tig + 4 for 2 * tig + 1
+    const float* qa = qw + g * SQ + 2 * tig;
+    const float* kp = ks + g * SK + 2 * tig;
+#pragma unroll
+    for (int kk = 0; kk < ND8; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * SQ + 8 * kk);
+      unsigned ah[4], al[4];
+      split_tf32(x0.x, ah[0], al[0]);
+      split_tf32(x1.x, ah[1], al[1]);
+      split_tf32(x0.y, ah[2], al[2]);
+      split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) {
+        const float2 y = *reinterpret_cast<const float2*>(kp + 8 * j * SK + 8 * kk);
+        unsigned bh[2], bl[2];
+        split_tf32(y.x, bh[0], bl[0]);
+        split_tf32(y.y, bh[1], bl[1]);
+        mma_3xtf32(s[j], ah, al, bh, bl);
+      }
+    }
+  } else {
+    const unsigned q_addr = smem_u32(qw + (lane & 15) * SQ + (lane >> 4) * 8);
+    const unsigned k_addr =
+        smem_u32(ks + ((lane & 7) + ((lane >> 4) << 3)) * SK + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int kk = 0; kk < ND8 / 2; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, q_addr + kk * 32);
+#pragma unroll
+      for (int jj = 0; jj < NKT / 2; ++jj) {
+        unsigned bfr[4];
+        ldmatrix_x4(bfr, k_addr + (jj * 16 * SK + kk * 16) * 2);
+        mma_bf16(s[2 * jj], a, bfr[0], bfr[1]);
+        mma_bf16(s[2 * jj + 1], a, bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// Scores of keys >= n_tok (key0: the block's first) -> -inf: the last n-tiles only
+template <int NKT>
+__device__ __forceinline__ void gen_mask(float (&s)[NKT][4], int key0, int n_tok, int tig) {
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    if (key0 + 8 * j + 8 > n_tok) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (key0 + 8 * j + 2 * tig + (c & 1) >= n_tok) s[j][c] = -INFINITY;
+    }
+  }
+}
+
+// The thread's max over its columns of rows g (m0) and g + 8 (m1)
+template <int NKT>
+__device__ __forceinline__ void gen_max(const float (&s)[NKT][4], float& m0, float& m1) {
+  m0 = m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+}
+
+// O += P V over the block's 8 * NKT keys; p holds the probabilities of rows
+// g (c = 0, 1) and g + 8 (c = 2, 3) in the accumulator layout of S.
+template <typename T, int NKT, int ND8>
+__device__ __forceinline__ void gen_pv(float (&o)[ND8][4], const float (&p)[NKT][4], const T* vs,
+                                       int lane) {
+  using Cfg = GenCfg<T, NKT, ND8>;
+  constexpr int SV = Cfg::kSV;
+  if constexpr (Cfg::kF32) {
+    // keys permuted as head dims are in gen_scores: operand column tig of a
+    // k-step of 8 keys is key 2 * tig, column tig + 4 key 2 * tig + 1, so the
+    // thread's own scores are its A fragment and V is read at those keys
+    const int g = lane >> 2, tig = lane & 3;
+    const float* vp = vs + 2 * tig * SV + g;
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      unsigned ah[4], al[4];
+      split_tf32(p[j][0], ah[0], al[0]);
+      split_tf32(p[j][2], ah[1], al[1]);
+      split_tf32(p[j][1], ah[2], al[2]);
+      split_tf32(p[j][3], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < ND8; ++n) {
+        unsigned bh[2], bl[2];
+        split_tf32(vp[8 * j * SV + 8 * n], bh[0], bl[0]);
+        split_tf32(vp[8 * j * SV + SV + 8 * n], bh[1], bl[1]);
+        mma_3xtf32(o[n], ah, al, bh, bl);
+      }
+    }
+  } else {
+    const unsigned v_addr =
+        smem_u32(vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * SV + (lane >> 4) * 8);
+#pragma unroll
+    for (int jj = 0; jj < NKT / 2; ++jj) {
+      const unsigned pa[4] = {pack_bf16(p[2 * jj][0], p[2 * jj][1]),
+                              pack_bf16(p[2 * jj][2], p[2 * jj][3]),
+                              pack_bf16(p[2 * jj + 1][0], p[2 * jj + 1][1]),
+                              pack_bf16(p[2 * jj + 1][2], p[2 * jj + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < ND8 / 2; ++dd) {
+        unsigned bfr[4];
+        ldmatrix_x4_trans(bfr, v_addr + (jj * 16 * SV + dd * 16) * 2);
+        mma_bf16(o[2 * dd], pa, bfr[0], bfr[1]);
+        mma_bf16(o[2 * dd + 1], pa, bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// blockDim.x is 32 per 16 query rows of the CTA's tile; gridDim.x is
+// batch * heads * n_qtiles, the query tiles of an item next to each other.
+template <typename T, int NKT, int ND8>
+__global__ void __launch_bounds__(kGenMaxWarps * 32, GenCfg<T, NKT, ND8>::kMinBlocks)
+mhsa_general_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
+                    int n_heads, int n_tok, int hd, int n_qtiles, float scale, int width) {
+  using Cfg = GenCfg<T, NKT, ND8>;
+  constexpr bool kF32 = Cfg::kF32;
+  constexpr int SQ = Cfg::kSQ, SK = Cfg::kSK, SV = Cfg::kSV, KB = Cfg::kKeys, HDP = Cfg::kHdp;
+  constexpr int kStage = KB * (SK + SV);  // elements of a stage: K and V of a block
+  extern __shared__ __align__(16) unsigned char gen_smem[];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tig = lane & 3, g = lane >> 2;
+  const int rows_q = (blockDim.x >> 5) * 16;
+  const int item = blockIdx.x / n_qtiles;
+  const int row0 = (blockIdx.x - item * n_qtiles) * rows_q;
+  const int b = item / n_heads, h = item - b * n_heads;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+
+  const int n_blocks = (n_tok + KB - 1) / KB;
+  T* qs = reinterpret_cast<T*>(gen_smem);
+  T* stages = qs + rows_q * SQ;
+  const T* qw = qs + warp * 16 * SQ;
+  const bool active = row0 + warp * 16 < n_tok;
+  const float c2 = scale * 1.4426950408889634f;
+
+  float o_acc[ND8][4];
+#pragma unroll
+  for (int n = 0; n < ND8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o_acc[n][c] = 0.f;
+
+  gen_stage<T, HDP>(qs, SQ, qb, sq.t, row0, rows_q, n_tok, hd, width);
+  if (n_blocks == 1) {
+    // all keys in one block: q and K land first, V while the scores are taken
+    gen_stage<T, HDP>(stages, SK, kb, sk.t, 0, KB, n_tok, hd, width);
+    cp_async_commit();
+    gen_stage<T, HDP>(stages + KB * SK, SV, vb, sv.t, 0, KB, n_tok, hd, width);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float s[NKT][4];
+    if (active) {
+      gen_scores<T, NKT, ND8>(s, qw, stages, lane);
+      gen_mask<NKT>(s, 0, n_tok, tig);
+      // exact softmax over the row: rows g (c = 0, 1) and g + 8 (c = 2, 3)
+      float m0, m1;
+      gen_max<NKT>(s, m0, m1);
+      const float mc0 = quad_max(m0) * c2, mc1 = quad_max(m1) * c2;
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) {
+        s[j][0] = ex2(fmaf(s[j][0], c2, -mc0));
+        s[j][1] = ex2(fmaf(s[j][1], c2, -mc0));
+        s[j][2] = ex2(fmaf(s[j][2], c2, -mc1));
+        s[j][3] = ex2(fmaf(s[j][3], c2, -mc1));
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) {
+        s[j][0] *= inv0;
+        s[j][1] *= inv0;
+        s[j][2] *= inv1;
+        s[j][3] *= inv1;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) gen_pv<T, NKT, ND8>(o_acc, s, stages + KB * SK, lane);
+  } else {
+    // job j < n_blocks: pass A over block j (K only); job n_blocks + i: pass B
+    // over block i (K and V). Job j is staged in stage j & 1 while job j - 1
+    // is computed.
+    const int n_jobs = 2 * n_blocks;
+    auto issue = [&](int j) {
+      T* st = stages + (j & 1) * kStage;
+      const int key0 = (j < n_blocks ? j : j - n_blocks) * KB;
+      gen_stage<T, HDP>(st, SK, kb, sk.t, key0, KB, n_tok, hd, width);
+      if (j >= n_blocks) gen_stage<T, HDP>(st + KB * SK, SV, vb, sv.t, key0, KB, n_tok, hd, width);
+      cp_async_commit();
+    };
+    // the running max (of raw scores) and sum of this thread's columns
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    issue(0);
+    for (int j = 0; j < n_jobs; ++j) {
+      if (j + 1 < n_jobs) {
+        issue(j + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (active) {
+        const T* ks = stages + (j & 1) * kStage;
+        float s[NKT][4];
+        gen_scores<T, NKT, ND8>(s, qw, ks, lane);
+        gen_mask<NKT>(s, (j < n_blocks ? j : j - n_blocks) * KB, n_tok, tig);
+        if (j < n_blocks) {
+          // pass A: a running max of the thread's columns, the sum rescaled to it
+          float b0, b1;
+          gen_max<NKT>(s, b0, b1);
+          const float n0 = fmaxf(m0, b0), n1 = fmaxf(m1, b1);
+          const float nc0 = n0 * c2, nc1 = n1 * c2;
+          l0 *= ex2(fmaf(m0, c2, -nc0));
+          l1 *= ex2(fmaf(m1, c2, -nc1));
+#pragma unroll
+          for (int jj = 0; jj < NKT; ++jj) {
+            l0 += ex2(fmaf(s[jj][0], c2, -nc0)) + ex2(fmaf(s[jj][1], c2, -nc0));
+            l1 += ex2(fmaf(s[jj][2], c2, -nc1)) + ex2(fmaf(s[jj][3], c2, -nc1));
+          }
+          m0 = n0;
+          m1 = n1;
+          if (j == n_blocks - 1) {  // the row's max and sum over the quad
+            const float r0 = quad_max(m0), r1 = quad_max(m1);
+            l0 = 1.f / quad_sum(l0 * ex2((m0 - r0) * c2));
+            l1 = 1.f / quad_sum(l1 * ex2((m1 - r1) * c2));
+            m0 = r0 * c2;  // from here on max * c2
+            m1 = r1 * c2;
+          }
+        } else {
+          // pass B: p = 2^(s * c2 - max * c2) / l, then O += P V
+#pragma unroll
+          for (int jj = 0; jj < NKT; ++jj) {
+            s[jj][0] = ex2(fmaf(s[jj][0], c2, -m0)) * l0;
+            s[jj][1] = ex2(fmaf(s[jj][1], c2, -m0)) * l0;
+            s[jj][2] = ex2(fmaf(s[jj][2], c2, -m1)) * l1;
+            s[jj][3] = ex2(fmaf(s[jj][3], c2, -m1)) * l1;
+          }
+          gen_pv<T, NKT, ND8>(o_acc, s, ks + KB * SK, lane);
+        }
+      }
+      __syncthreads();  // every warp is done with stage j & 1 before job j + 2 refills it
+    }
+  }
+
+  if (!active) return;
+  // straight from the accumulators: rows g and g + 8, columns 8n + 2tig, + 1
+  T* ob = o + b * so.b + h * so.h;
+  const bool pairs = width >= int(2 * sizeof(T));  // 2-element stores aligned (hd even)
+#pragma unroll
+  for (int n = 0; n < ND8; ++n) {
+    const int d = 8 * n + 2 * tig;
+    if (d >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + warp * 16 + g + 8 * half;
+      if (row >= n_tok) continue;
+      T* dst = ob + row * so.t + d;
+      const float x0 = o_acc[n][2 * half], x1 = o_acc[n][2 * half + 1];
+      if constexpr (kF32) {
+        if (pairs) {
+          *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+        } else {
+          dst[0] = x0;
+          if (d + 1 < hd) dst[1] = x1;
+        }
+      } else {
+        if (pairs) {
+          *reinterpret_cast<unsigned*>(dst) = pack_bf16(x0, x1);
+        } else {
+          dst[0] = __float2bfloat16(x0);
+          if (d + 1 < hd) dst[1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int NKT, int ND8>
+cudaError_t gen_launch(const void* q, const void* k, const void* v, void* o, const long long* st,
+                       int batch, int n_heads, int n_tok, int hd, float scale, int width,
+                       cudaStream_t stream) {
+  using Cfg = GenCfg<T, NKT, ND8>;
+  const int n_blocks = (n_tok + Cfg::kKeys - 1) / Cfg::kKeys;
+  // the fewest query tiles of at most 8 warps, the warps spread evenly over them
+  const int row_tiles = (n_tok + 15) / 16;
+  const int n_qtiles = (row_tiles + kGenMaxWarps - 1) / kGenMaxWarps;
+  const int warps = (row_tiles + n_qtiles - 1) / n_qtiles;
+  const size_t smem = sizeof(T) * (size_t(warps) * 16 * Cfg::kSQ +
+                                   size_t(n_blocks > 1 ? 2 : 1) * Cfg::kKeys *
+                                       (Cfg::kSK + Cfg::kSV));
+  cudaError_t err = cudaFuncSetAttribute(mhsa_general_kernel<T, NKT, ND8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)batch * n_heads * n_qtiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
+  const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
+  mhsa_general_kernel<T, NKT, ND8><<<unsigned(blocks), warps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), sq, sk, sv, so, n_heads, n_tok, hd, n_qtiles, scale, width);
+  return cudaGetLastError();
+}
+
+template <typename T, int NKT>
+cudaError_t gen_dispatch_hd(const void* q, const void* k, const void* v, void* o,
+                            const long long* st, int batch, int n_heads, int n_tok, int hd,
+                            float scale, int width, cudaStream_t s) {
+#define GEN_LAUNCH(D) \
+  return gen_launch<T, NKT, D>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, width, s)
+  if (hd <= 48) GEN_LAUNCH(6);
+  if (hd <= 64) GEN_LAUNCH(8);
+  if (hd <= 96) GEN_LAUNCH(12);
+  GEN_LAUNCH(16);
+#undef GEN_LAUNCH
+}
+
+// Keys a block, by T: up to 64 in 8 n-tiles; fp32 up to 104 (visformer stage
+// 2's 100 keys, padded to the m16n8k8 tile) in 13; up to 128 in 16; beyond
+// 128, blocks of 64 and two passes.
+template <typename T>
+cudaError_t gen_dispatch(const void* q, const void* k, const void* v, void* o,
+                         const long long* st, int batch, int n_heads, int n_tok, int hd,
+                         float scale, int width, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (n_tok > 64 && n_tok <= 104)
+      return gen_dispatch_hd<T, 13>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, width, s);
+  }
+  if (n_tok > 64 && n_tok <= 128)
+    return gen_dispatch_hd<T, 16>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, width, s);
+  return gen_dispatch_hd<T, 8>(q, k, v, o, st, batch, n_heads, n_tok, hd, scale, width, s);
+}
+
+// width-byte accesses: width 2, 4, 8 or 16 and at least one element; every
+// pointer width-aligned; every stride and hd a whole number of width bytes
+bool width_ok(const void* q, const void* k, const void* v, const void* o, const long long* st,
+              int hd, int elem, int width) {
+  if ((width != 2 && width != 4 && width != 8 && width != 16) || width < elem) return false;
+  if ((hd * elem) % width) return false;
   for (const void* p : {q, k, v, o})
-    if (reinterpret_cast<unsigned long long>(p) & 3ull) return false;
+    if (reinterpret_cast<unsigned long long>(p) % width) return false;
   for (int i = 0; i < 12; ++i)
-    if (st[i] & 1LL) return false;
+    if ((st[i] * elem) % width) return false;
   return true;
 }
 
@@ -689,24 +1006,29 @@ bool tc_vec_ok(const void* q, const void* k, const void* v, const void* o, const
 // q, k, v, o: (batch, heads, tokens, hd) device arrays of one dtype
 // (0 = float32, 1 = bfloat16) whose last dim is contiguous; strides: 12 host
 // int64s, the (batch, head, token) element strides of q, k, v, o in that
-// order. route: 0 = general (CUDA cores), 1 = tensor cores (bf16, T <= 128);
-// vec (tensor-core route): 1 = 4-byte accesses, refused if anything is
-// misaligned. Launches on `stream` of `device` and returns cudaGetLastError().
-extern "C" int mhsa_forward(int dtype, int device, int route, int vec, const void* q,
+// order. route: 0 = general (tensor cores, 3xTF32 in fp32), 1 = tensor-core
+// route (bf16, T <= 128); width: the bytes of one global access the
+// pointers, strides and hd allow (2, 4, 8 or 16), refused if anything is
+// misaligned for it. Launches on `stream` of `device` and
+// returns cudaGetLastError().
+extern "C" int mhsa_forward(int dtype, int device, int route, int width, const void* q,
                             const void* k, const void* v, void* o, const long long* strides,
                             int batch, int n_heads, int n_tok, int hd, float scale,
                             void* stream) {
   if (batch < 1 || n_heads < 1 || n_tok < 1 || n_tok > kMaxTokens || hd < 1 ||
-      hd > kMaxHeadDim || (dtype != 0 && dtype != 1) || (route != 0 && route != 1))
+      hd > kMaxHeadDim || (dtype != 0 && dtype != 1) || route < 0 || route > 1)
     return cudaErrorInvalidValue;
+  if (!width_ok(q, k, v, o, strides, hd, dtype == 0 ? 4 : 2, width)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != 1 || n_tok > kTcMaxTokens) return cudaErrorInvalidValue;
-    if (vec && !tc_vec_ok(q, k, v, o, strides, hd)) return cudaErrorInvalidValue;
-    return tc_dispatch(q, k, v, o, strides, device, batch, n_heads, n_tok, hd, scale, vec, s);
+    return tc_dispatch(q, k, v, o, strides, device, batch, n_heads, n_tok, hd, scale,
+                       width >= 4 ? 1 : 0, s);
   }
-  if (dtype == 0) return dispatch<float>(q, k, v, o, strides, batch, n_heads, n_tok, hd, scale, s);
-  return dispatch<__nv_bfloat16>(q, k, v, o, strides, batch, n_heads, n_tok, hd, scale, s);
+  if (dtype == 0)
+    return gen_dispatch<float>(q, k, v, o, strides, batch, n_heads, n_tok, hd, scale, width, s);
+  return gen_dispatch<__nv_bfloat16>(q, k, v, o, strides, batch, n_heads, n_tok, hd, scale, width,
+                                     s);
 }

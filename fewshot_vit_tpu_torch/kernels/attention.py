@@ -10,11 +10,12 @@ implementations of the custom op ``fewshot_vit_tpu_torch::fused_mhsa``
 (``mhsa_op``), which ``torch.export`` keeps as one node of an exported
 program, chosen by device when the program runs.
 
-The source holds two routes, and ``mhsa_route`` picks one from dtype and
-shape alone: ``tensor_core`` (bf16, T <= 128, hd <= 128: ``mma.sync`` products,
-scores in registers) and ``general`` (fp32, or bf16 with longer token axes:
-fp32 FMAs on the CUDA cores). ``fused_mhsa(..., route="general")`` or the
-``force_route("general")`` context forces the general route, for timing one
+The source holds two routes; ``mhsa_route`` picks one from dtype and shape
+alone: ``tensor_core`` (bf16, T <= 128, hd <= 128: ``mma.sync`` products,
+scores in registers, producer warps) and ``general`` (fp32 at any shape, bf16
+with longer token axes: ``mma.sync`` products too, 3xTF32 in fp32).
+``fused_mhsa(..., route=R)`` or the ``force_route(R)`` context forces route R
+(``general`` takes every shape, ``tensor_core`` only its own), for timing one
 against the other. Launches are counted in all and per route.
 """
 
@@ -30,7 +31,7 @@ import torch
 MAX_TOKENS = 512
 MAX_HEAD_DIM = 128
 TC_MAX_TOKENS = 128   # the tensor-core route keeps a whole score row in registers
-ROUTES = ("general", "tensor_core")
+ROUTES = ("general", "tensor_core")  # index = the C interface's route code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _forced_route: Optional[str] = None
 
@@ -53,7 +54,7 @@ def _mhsa_forward():
     fn = library("mhsa").mhsa_forward
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int,                      # dtype code, device
-        ctypes.c_int, ctypes.c_int,                      # route, 4-byte accesses
+        ctypes.c_int, ctypes.c_int,                      # route, bytes an access
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_longlong),               # 12 strides
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -93,15 +94,23 @@ def mhsa_route(q: torch.Tensor) -> str:
     return "general"
 
 
-def mhsa_vectorized(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    out: torch.Tensor) -> bool:
-    """Whether the tensor-core route may move bf16 pairs (4-byte ``cp.async``
-    and stores): every pointer 4-byte aligned, every (batch, head, token)
-    stride even and hd even. Otherwise it moves single elements."""
-    if q.shape[-1] % 2:
-        return False
-    return all(x.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in x.stride()[:3])
-               for x in (q, k, v, out))
+def mhsa_copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor) -> int:
+    """The widest global access, in bytes, that every row of q, k, v and out
+    allows: 16, 8 or 4 when every pointer is aligned to it and every
+    (batch, head, token) stride and hd span a whole number of it, else one
+    element. The general route copies by ``cp.async`` of that width (fp32
+    rows of a packed qkv at hd 42: 8 bytes) and stores pairs when it is at
+    least two elements; the tensor-core route moves bf16 pairs when it is at
+    least 4, single elements otherwise."""
+    elem = q.element_size()
+    hd = q.shape[-1]
+    for width in (16, 8, 4):
+        if width >= elem and hd * elem % width == 0 and all(
+                x.data_ptr() % width == 0 and all(s * elem % width == 0 for s in x.stride()[:3])
+                for x in (q, k, v, out)):
+            return width
+    return elem
 
 
 @contextlib.contextmanager
@@ -147,11 +156,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
     _check(q, k, v, out)
     b, h, t, hd = q.shape
     route = _resolve_route(q, route)
-    vec = route == "tensor_core" and mhsa_vectorized(q, k, v, out)
     strides = (ctypes.c_longlong * 12)(
         *(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    width = mhsa_copy_bytes(q, k, v, out)
     err = _mhsa_forward()(
-        _DTYPE_CODE[q.dtype], q.device.index, ROUTES.index(route), int(vec),
+        _DTYPE_CODE[q.dtype], q.device.index, ROUTES.index(route), width,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         b, h, t, hd, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )

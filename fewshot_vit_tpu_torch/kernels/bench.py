@@ -1,13 +1,15 @@
 """Check and time the hand-written kernels alone on one card, route against route.
 
-    python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--batch 10240]
+    python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--ptxas]
 
 Builds ``csrc/*.cu``, prints what ``ptxas -v`` says of every kernel (registers,
 spills, shared memory), holds each route of ``fused_mhsa`` and
-``sinkhorn_pallas`` against its plain version at the eval's shapes (the bare
-launch with the output pre-filled with NaN, and the custom op beside it),
-and times them in turns (old, new, new, old) with
-CUDA events, ``scaled_dot_product_attention`` beside the MHSA as a yardstick.
+``sinkhorn_pallas`` against its plain version (the bare launch with the
+output pre-filled with NaN, and the custom op beside it), and times them in
+turns (route by route, then back) with CUDA events,
+``scaled_dot_product_attention`` and the plain version beside the MHSA as
+yardsticks. The MHSA runs at the shapes its callers give it (``MHSA_TIMED``)
+and is checked at the routes' edges (``MHSA_EDGES``).
 ``chip_smoke.py`` makes the same measurements inside its full run; this is the
 short loop for working on a kernel. Every line names the card and its power
 limit.
@@ -26,6 +28,19 @@ from . import attention, sinkhorn
 from .attention import fused_mhsa, fused_mhsa_reference
 from .sinkhorn import sinkhorn_pallas, sinkhorn_reference
 
+F32, BF16 = torch.float32, torch.bfloat16
+TOL = {F32: 1e-4, BF16: 2e-2}
+# (batch, heads, tokens, hd, dtypes): the SUN-M eval's stage 2 (128 episodes
+# of 80 images), the SUN teacher's batch of 512, the eval CLI's batch of 8
+# episodes, visformer_small's stage 3 at 224 px at the eval CLI's batch and
+# at 20 times it (enough work that the launch's host time does not hide the
+# device's)
+MHSA_TIMED = ((10240, 6, 100, 42, (BF16, F32)), (512, 6, 100, 42, (F32, BF16)),
+              (640, 6, 100, 42, (F32,)), (32, 6, 196, 128, (BF16, F32)),
+              (640, 6, 196, 128, (BF16, F32)))
+MHSA_EDGES = ((64, 4, 512, 128), (4, 2, 129, 64), (4, 2, 128, 128), (32, 6, 25, 85),
+              (2, 3, 33, 97), (3, 1, 1, 1), (8, 4, 64, 48))
+
 
 def time_ms(fn, reps: int, warm: int = 3) -> float:
     for _ in range(warm):
@@ -40,11 +55,40 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def mhsa_routes(q: torch.Tensor):
+    """Every route that takes q: the general route, and the tensor-core
+    route where it applies."""
+    return ("general",) + (("tensor_core",) if attention.mhsa_route(q) == "tensor_core"
+                           else ())
+
+
+def _check_mhsa(card, gen, dev, b, h, t, hd, dtype):
+    """Each route of fused_mhsa against the plain version on heads split out
+    of a packed qkv; returns the views and the scale for timing."""
+    qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    scale = hd ** -0.5
+    want = fused_mhsa_reference(q, k, v, scale).float()
+    errs = {}
+    for route in mhsa_routes(q):
+        out = torch.full((b, t, h, hd), float("nan"), dtype=dtype, device=dev)
+        attention._launch(q, k, v, out.transpose(1, 2), scale, route)
+        got = fused_mhsa(q, k, v, scale, route=route)
+        torch.cuda.synchronize()
+        errs[route] = max((o.float() - want).abs().max().nan_to_num(float("inf")).item()
+                          for o in (out.transpose(1, 2), got))
+        del out, got
+    bad = {r: e for r, e in errs.items() if not e <= TOL[dtype]}
+    print(f"[{card}] fused_mhsa ({b},{h},{t},{hd}) {dtype}: max|d| "
+          + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
+          + (f"  FAIL {bad}" if bad else ""))
+    return q, k, v, scale, not bad
+
+
 def main() -> int:
     watchdog_reexec(timeout_s=900.0)  # a hung launch fails loudly instead of hanging the run
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
-    p.add_argument("--batch", type=int, default=10240, help="images per MHSA call")
     p.add_argument("--ptxas", action="store_true", help="print every kernel's ptxas line")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -63,30 +107,27 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    b, h, t, hd = args.batch, 6, 100, 42
-    qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(torch.bfloat16)
-    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
-    scale = hd ** -0.5
-    want = fused_mhsa_reference(q, k, v, scale).float()
-    for route in ("general", "tensor_core"):
-        out = torch.full((b, t, h, hd), float("nan"), dtype=torch.bfloat16, device=dev)
-        attention._launch(q, k, v, out.transpose(1, 2), scale, route)
-        got = fused_mhsa(q, k, v, scale, route=route)
-        torch.cuda.synchronize()
-        err = max((o.float() - want).abs().max().nan_to_num(float("inf")).item()
-                  for o in (out.transpose(1, 2), got))
-        print(f"[{card}] fused_mhsa ({b},{h},{t},{hd}) bf16 {route}: max|d|={err:.3e}")
-        del out, got
-    del want
-    ms = {"general": [], "tensor_core": [], "sdpa": []}
-    for route in ("general", "tensor_core", "sdpa", "sdpa", "tensor_core", "general"):
-        if route == "sdpa":
-            fn = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
-        else:
-            fn = lambda: fused_mhsa(q, k, v, scale, route=route)  # noqa: E731
-        ms[route].append(time_ms(fn, args.reps))
-    print(f"[{card}] fused_mhsa ({b},{h},{t},{hd}) bf16 ms per call: {ms}")
-    del qkv, q, k, v
+    ok = True
+    for b, h, t, hd in MHSA_EDGES:
+        for dtype in (F32, BF16):
+            ok &= _check_mhsa(card, gen, dev, b, h, t, hd, dtype)[-1]
+    for b, h, t, hd, dtypes in MHSA_TIMED:
+        for dtype in dtypes:
+            q, k, v, scale, good = _check_mhsa(card, gen, dev, b, h, t, hd, dtype)
+            ok &= good
+            routes = mhsa_routes(q) + ("sdpa",)
+            ms = {r: [] for r in routes}
+            for route in routes + routes[::-1]:
+                if route == "sdpa":
+                    fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                        q, k, v, scale=scale)
+                else:
+                    fn = lambda: fused_mhsa(q, k, v, scale, route=route)  # noqa: E731
+                ms[route].append(time_ms(fn, args.reps))
+            plain = time_ms(lambda: fused_mhsa_reference(q, k, v, scale), 5, warm=1)
+            print(f"[{card}] fused_mhsa ({b},{h},{t},{hd}) {dtype} ms per call: {ms}, "
+                  f"plain {plain:.4f}")
+            del q, k, v
 
     from ..ops.emd import normalize_weights
 
@@ -107,7 +148,7 @@ def main() -> int:
             ms[route].append(
                 time_ms(lambda: sinkhorn_pallas(cost, w1, w2, route=route), args.reps))
         print(f"[{card}] sinkhorn_pallas ({bsz},{n},{n}) iters 100 ms per call: {ms}")
-    return 0
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -23,6 +23,9 @@ SOURCES = ("mhsa", "sinkhorn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # optimise the kernels of a source on every CPU at once: mhsa.cu holds 36
+    # instantiations
+    "-split-compile", "0",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -9,9 +9,16 @@ once with fp32 activations (TF32 off), 64 episodes a batch, and once with
 bf16 activations, 128 a batch. As in JAX's tool the head is not folded. With
 the kernel on, fp32 runs the MHSA kernel's general route and bf16 its
 tensor-core route, so the gate also holds the two routes' mean accuracies
-to each other. Prints one JSON line with both mean accuracies, their CIs and
-their gap; the gate (``tests/test_cli_integration.py::TestPrecisionParity``)
-asks ``acc_fp32 > 0.3`` and ``abs_diff <= 0.005``.
+to each other. The fp32 pass turns TF32 off through ``torch.backends``; those
+flags reach cuBLAS and cuDNN, not a hand-written ``mma``, and the general
+route multiplies fp32 on the TF32 tensor cores as 3xTF32 inside the kernel
+(each operand split into a TF32 high and low part, three products, each
+k-step's sum added in fp32). On the H100 its output sits as close to float64
+as the plain fp32 version's (``chip_smoke.py`` phase 4 holds it), so the
+fp32 pass stays an fp32 reference for the gate, as on the TPU. Prints one
+JSON line with both mean accuracies, their CIs and their gap; the gate
+(``tests/test_cli_integration.py::TestPrecisionParity``) asks
+``acc_fp32 > 0.3`` and ``abs_diff <= 0.005``.
 
 Run:  python -m fewshot_vit_tpu_torch.tools.precision_check [--device cpu]
 (env: PRECHECK_EPISODES, PRECHECK_EPB, PRECHECK_EPB_FP32)

@@ -32,7 +32,7 @@ def _qkv(shape, seed, device, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(64, 6, 100, 42), (32, 6, 25, 85), (4, 2, 512, 128),
                                    (3, 1, 1, 1), (2, 3, 33, 97), (8, 4, 64, 48),
-                                   (4, 2, 128, 128), (4, 2, 129, 64)])
+                                   (4, 2, 128, 128), (4, 2, 129, 64), (32, 6, 196, 128)])
 def test_kernel_matches_plain(cuda_device, dtype, tol, shape):  # noqa: F811
     q, k, v = _qkv(shape, 6, cuda_device, dtype)
     scale = shape[-1] ** -0.5

@@ -27,24 +27,34 @@ def _packed_views(b, t, h, hd, dtype, offset=0):
     return q, k, v, out.transpose(1, 2)
 
 
-@pytest.mark.parametrize("t,hd,dtype,offset,route,vec", [
-    (100, 42, torch.bfloat16, 0, "tensor_core", True),    # the main path: 84-byte rows
-    (100, 42, torch.bfloat16, 1, "tensor_core", False),   # base pointers 2 bytes off
-    (25, 85, torch.bfloat16, 0, "tensor_core", False),    # odd hd: rows 2-byte aligned
-    (128, 128, torch.bfloat16, 0, "tensor_core", True),   # the route's limit
-    (129, 64, torch.bfloat16, 0, "general", False),
-    (512, 42, torch.bfloat16, 0, "general", False),
-    (100, 42, torch.float32, 0, "general", False),        # fp32 never takes TF32 products
-    (1, 1, torch.bfloat16, 0, "tensor_core", False),
+@pytest.mark.parametrize("t,hd,dtype,offset,route,width", [
+    (100, 42, torch.bfloat16, 0, "tensor_core", 4),    # the main path: 84-byte rows
+    (100, 42, torch.bfloat16, 1, "tensor_core", 2),    # base pointers 2 bytes off
+    (25, 85, torch.bfloat16, 0, "tensor_core", 2),     # odd hd: rows 2-byte aligned
+    (128, 128, torch.bfloat16, 0, "tensor_core", 16),  # the route's limit
+    (129, 64, torch.bfloat16, 0, "general", 16),
+    (512, 42, torch.bfloat16, 0, "general", 4),
+    (196, 128, torch.bfloat16, 0, "general", 16),      # visformer_small's stage 3 at 224 px
+    (100, 42, torch.float32, 0, "general", 8),         # fp32 stage 2: 168-byte rows
+    (128, 64, torch.float32, 0, "general", 16),        # fp32 at any T
+    (100, 42, torch.float32, 1, "general", 4),         # base pointers 4 bytes off
+    (25, 85, torch.float32, 0, "general", 4),          # odd hd
+    (196, 128, torch.float32, 0, "general", 16),
+    (512, 128, torch.float32, 0, "general", 16),
+    (1, 1, torch.bfloat16, 0, "tensor_core", 2),
+    (1, 1, torch.float32, 0, "general", 4),
 ])
-def test_mhsa_route_and_alignment(t, hd, dtype, offset, route, vec):
+def test_mhsa_route_and_alignment(t, hd, dtype, offset, route, width):
     q, k, v, out = _packed_views(2, t, 6, hd, dtype, offset)
     assert q.stride() == (t * 3 * 6 * hd, hd, 3 * 6 * hd, 1)  # token stride 756 at hd 42
     assert tk.mhsa_route(q) == route
     assert tk._resolve_route(q, None) == route
-    assert tk._resolve_route(q, "general") == "general"  # the general route takes everything
+    assert tk.mhsa_copy_bytes(q, k, v, out) == width
+    assert tk._resolve_route(q, "general") == "general"  # takes every shape, when asked
+    with tk.force_route("general"):
+        assert tk._resolve_route(q, None) == "general"
+    assert tk._resolve_route(q, None) == route  # the context restores
     if route == "tensor_core":
-        assert tk.mhsa_vectorized(q, k, v, out) is vec
         with tk.force_route("general"):
             assert tk._resolve_route(q, None) == "general"
             assert tk._resolve_route(q, "tensor_core") == "tensor_core"  # the argument wins
@@ -55,19 +65,24 @@ def test_mhsa_route_and_alignment(t, hd, dtype, offset, route, vec):
     with pytest.raises(ValueError, match="route must be"):
         tk._resolve_route(q, "fastest")
     before = dict(tk.fused_mhsa.route_launches)
-    tk.fused_mhsa(q, k, v, 1.0)  # CPU tensors: the plain version, no launch
+    for forced in (None, "general"):
+        tk.fused_mhsa(q, k, v, 1.0, route=forced)  # CPU tensors: the plain version, no launch
+    with tk.force_route("general"):
+        tk.fused_mhsa(q, k, v, 1.0)
     assert tk.fused_mhsa.route_launches == before
 
 
-def test_mhsa_odd_stride_is_not_vectorized():
+@pytest.mark.parametrize("dtype,narrow", [(torch.bfloat16, 2), (torch.float32, 4)])
+def test_mhsa_odd_stride_is_not_vectorized(dtype, narrow):
     """An odd token stride (heads of odd width packed side by side) breaks the
-    4-byte alignment of every second row even when hd itself is even."""
-    buf = torch.zeros(2, 10, 3, 43, dtype=torch.bfloat16)
+    alignment of every second row even when hd itself is even: one element an
+    access, where the same rows in a contiguous tensor move wider."""
+    buf = torch.zeros(2, 10, 3, 43, dtype=dtype)
     q, k, v = (buf[:, :, i, None, :42].transpose(1, 2) for i in range(3))
-    out = torch.zeros(2, 1, 10, 42, dtype=torch.bfloat16)
+    out = torch.zeros(2, 1, 10, 42, dtype=dtype)
     assert q.stride(2) % 2 == 1
-    assert not tk.mhsa_vectorized(q, k, v, out)
-    assert tk.mhsa_vectorized(out, out, out, out)
+    assert tk.mhsa_copy_bytes(q, k, v, out) == narrow
+    assert tk.mhsa_copy_bytes(out, out, out, out) >= 2 * narrow
 
 
 @pytest.mark.parametrize("n1,n2,route,lanes", [
@@ -104,10 +119,14 @@ def test_sinkhorn_route_and_lanes(n1, n2, route, lanes):
     assert tks.sinkhorn_pallas.route_launches == before
 
 
-@pytest.mark.parametrize("t,hd,t_pad,hd_pad", [(100, 42, 112, 48), (25, 85, 32, 96), (1, 1, 16, 16)])
+@pytest.mark.parametrize("t,hd,t_pad,hd_pad", [
+    # the tensor-core route and the general route in bf16: keys and dims to 16s
+    (100, 42, 112, 48), (25, 85, 32, 96), (1, 1, 16, 16), (196, 128, 208, 128),
+    # the general route in fp32: keys and dims to 8s (mma.m16n8k8)
+    (100, 42, 104, 48), (25, 85, 32, 88), (1, 1, 8, 8), (129, 64, 136, 64), (196, 128, 200, 128)])
 def test_mhsa_padding_rule(t, hd, t_pad, hd_pad):
-    """What the tensor-core kernel does in shared memory: head dims padded
-    with zeros and keys padded to a multiple of 16 with score -inf leave the
+    """What the tensor-core kernels do in shared memory: head dims padded
+    with zeros and keys padded to the mma tile with score -inf leave the
     result unchanged. fp32, atol 0: a zero adds nothing to a dot product and
     exp(-inf) = 0 adds nothing to a softmax sum. The products are taken one
     output at a time (broadcast multiply, then a sum over the reduced axis in
