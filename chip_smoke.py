@@ -225,7 +225,19 @@ Phases, in order; any failure exits non-zero:
      product must break; at most 1% of episodes differing from the plain
      path; bf16 logits off the fp32 path by at most twice what plain bf16
      attention is, plus 1e-2, and the bf16 accuracy rule;
- 38. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
+ 38. (right after phases 6-7 of SUN-D) the Sinkhorn kernel's general route
+     on its paths: SUN-D fcn with ``feature_pyramid: [2, 3]`` over the same
+     encoder (38 nodes), 1-shot, 8 episodes a batch, bf16 encoder, fp32 EMD:
+     1 general-route Sinkhorn launch and 2 tensor-core MHSA launches a
+     batch, the same episodes in fp32 with the kernel against
+     ``sinkhorn_detached`` (the accuracy rule), one ``meta_tune_emd`` step
+     (``bs`` 2, fp32) with 1 general-route launch per training episode;
+     SUN-D fcn over ``visformer_small`` at 224 px (196 nodes) on phase 37's
+     split, bf16 with 1 general-route Sinkhorn launch and 4 general-route
+     MHSA launches a batch, and the fp32 accuracy rule; then the kernel
+     timed at (3000, 38, 38), (375, 38, 38), (3000, 64, 64) and (3000, 196,
+     196) beside its plain version and its bound;
+ 39. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
      ``slice10``, ``slice11`` and kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
@@ -269,6 +281,12 @@ SFU_PER_S = 132 * 16 * 1.98e9
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 MHSA_ROUTES = ("general", "tensor_core")
 SINKHORN_TOL = 1e-4
+# and 1e-3 of the plain flow's largest entry; the flow's row and column sums
+# within this of the plain flow's, relative to the largest of them (DeepEMD's
+# marginals sum to the node count: on an H100 a row of 13 entries, each
+# within 1e-4, sums to about 1 with up to 1.1e-5 of error)
+SINKHORN_REL_TOL = 1e-3
+SINKHORN_MARGINAL_TOL = 1e-5
 ENCODER = "visformer_micro_80"
 # the geometry of configs/sund_mini_visformer_1shot.yaml, on the kernel's solver
 SUND_TRAIN = {"way": 5, "shot": 1, "query": 15, "bs": 2, "lr": 5e-4, "step_size": 10,
@@ -359,6 +377,9 @@ VIS_N = 16
 SMALL224 = {"n_classes": 10, "n_per_class": 40, "image_size": 224, "seed": 10}
 SMALL224_EPISODES = 64
 SMALL224_EXACT = 4          # batches of the float64-attention path
+# phase 38: the Sinkhorn's general route on its paths
+PYRAMID_EPISODES = 32       # SUN-D fcn + feature_pyramid [2, 3], 8 a batch
+SMALL224_EMD_EPISODES = 32  # SUN-D fcn over visformer_small at 224 px, 8 a batch
 VIS_DATA = {"n_classes": 4, "n_per_class": 8, "image_size": 80, "seed": 9}
 
 
@@ -533,9 +554,21 @@ def _check_mhsa(gen, dev, b_main):
     return errs
 
 
+def _sinkhorn_rules(got, want):
+    """Phase 4's rules for a flow against the plain version's: max|d| <=
+    SINKHORN_TOL and <= SINKHORN_REL_TOL of the plain flow's largest entry;
+    returns (max|d|, the relative limit, both held)."""
+    err = _max_err(got, want)
+    limit = SINKHORN_REL_TOL * want.abs().max().item()
+    return err, limit, err <= SINKHORN_TOL and err <= limit
+
+
 def _check_sinkhorn(gen, dev):
     """Phase 4, Sinkhorn: kernel vs plain version, the bare launch into a
-    NaN-filled output and the op beside it; returns max|d| per case."""
+    NaN-filled output and the op beside it, by the absolute and the relative
+    rule, with the flow's row and column sums against the plain flow's
+    (SINKHORN_MARGINAL_TOL of the largest); a zero flow and one with two rows swapped must
+    break the relative rule at N = 196. Returns max|d| per case."""
     import torch
 
     from fewshot_vit_tpu_torch.kernels import sinkhorn as sk_mod
@@ -546,15 +579,21 @@ def _check_sinkhorn(gen, dev):
     )
 
     b_main = SUND_EP_PER_BATCH * WAY * QUERY * WAY  # (query, prototype) pairs per batch
+    b_train = WAY * QUERY * WAY  # one SUN-D training episode: 75 queries x 5 prototypes
     errs = {}
     cases = (("grid", (b_main, 13, 13), 100), ("fcn", (b_main, 25, 25), 100),
-             ("ragged", (5, 9, 13), 100), ("limit", (64, MAX_NODES, MAX_NODES), 100),
-             # one SUN-D training episode: 75 queries x 5 prototypes
-             ("train episode", (WAY * QUERY * WAY, 13, 13), 100),
+             ("ragged", (5, 9, 13), 100), ("limit", (4, MAX_NODES, MAX_NODES), 100),
+             ("train episode", (b_train, 13, 13), 100),
              ("sfc inner", (160, 13, 13), 100), ("odd batch", (b_main + 1, 13, 13), 100),
              ("half-warp full", (5, 16, 16), 100), ("mixed", (5, 17, 9), 100),
              ("warp full", (5, 32, 32), 100), ("beyond packed", (5, 33, 33), 100),
-             ("no rounds", (7, 13, 13), 0), ("one round", (7, 25, 13), 1))
+             ("no rounds", (7, 13, 13), 0), ("one round", (7, 25, 13), 1),
+             # the general route's callers: a feature pyramid (38 nodes) in an
+             # eval batch and a training episode, the old limit, visformer_small's
+             # 14 x 14 map (196), ragged problems
+             ("pyramid", (b_main, 38, 38), 100), ("pyramid train episode", (b_train, 38, 38), 100),
+             ("old limit", (8, 64, 64), 100), ("small 224 fcn", (b_main, 196, 196), 100),
+             ("ragged pyramid", (7, 38, 25), 100), ("ragged large", (5, 209, 150), 100))
     for name, (b, n1, n2), iters in cases:
         cost, w1, w2 = _ot_problem(b, n1, n2, gen, dev)
         route = "packed" if max(n1, n2) <= 32 else "general"
@@ -567,16 +606,30 @@ def _check_sinkhorn(gen, dev):
         if sinkhorn_pallas.route_launches[route] != before[route] + 2:
             _fail(f"sinkhorn_pallas {name}: expected two launches (bare, op) on the {route} "
                   f"route, counts went {before} -> {sinkhorn_pallas.route_launches}")
-        err = max(_max_err(bare, want), _max_err(got, want))
+        (err_b, limit, ok_b), (err_o, _, ok_o) = _sinkhorn_rules(bare, want), _sinkhorn_rules(got, want)
+        err = max(err_b, err_o)
+        marg = max(((o.sum(d) - want.sum(d)).abs().max() / want.sum(d).abs().max())
+                   .nan_to_num(float("inf")).item() for o in (bare, got) for d in (-1, -2))
         row = (got.sum(-1) - w1).abs().max().item()
         col = (got.sum(-2) - w2).abs().max().item()
         errs[name] = err
-        ok = err <= SINKHORN_TOL
+        ok = ok_b and ok_o and marg <= SINKHORN_MARGINAL_TOL
         print(f"kernel vs plain sinkhorn {name} ({b},{n1},{n2}) iters {iters}: max|d|={err:.3e} "
-              f"tol={SINKHORN_TOL:g} {'ok' if ok else 'FAIL'}; kernel marginal error "
-              f"rows {row:.3e}, columns {col:.3e}; {route} route")
+              f"tol={SINKHORN_TOL:g} and {limit:.3e} ({SINKHORN_REL_TOL:g} of the largest flow "
+              f"entry); marginals against the plain flow's, relative to its largest, "
+              f"{marg:.3e} (tol {SINKHORN_MARGINAL_TOL:g}) {'ok' if ok else 'FAIL'}; against "
+              f"w1, w2 (the "
+              f"plain version's convergence too) rows {row:.3e}, columns {col:.3e}; {route} route")
         if not ok:
             _fail(f"sinkhorn_pallas disagrees with its plain version at {name}")
+        if name == "small 224 fcn":  # the controls: what the relative rule must catch
+            swapped = want[:, [1, 0, *range(2, n1)]]
+            for control, flow in (("zero flow", torch.zeros_like(want)), ("rows swapped", swapped)):
+                c_err, c_limit, c_ok = _sinkhorn_rules(flow, want)
+                print(f"  control {control} at ({b},{n1},{n2}): max|d|={c_err:.3e} against "
+                      f"{c_limit:.3e}: {'passes (FAIL)' if c_ok else 'breaks the rule (ok)'}")
+                if c_ok:
+                    _fail(f"the Sinkhorn rules do not catch a {control} at {name}")
         if route == "packed":  # the general route on the same problem
             bare.fill_(float("nan"))
             sk_mod._launch(cost, w1, w2, bare, 0.05, iters, "general")
@@ -584,6 +637,8 @@ def _check_sinkhorn(gen, dev):
             err = max(_max_err(bare, want), _max_err(got, want))
             if not err <= SINKHORN_TOL:
                 _fail(f"sinkhorn_pallas (general route forced) disagrees at {name}: {err:.3e}")
+        del cost, w1, w2, bare, got, want
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -712,6 +767,205 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
             "replaces": "fewshot_vit_tpu/kernels/sinkhorn.py:71",
             "launches": launches, "route_launches": route_launches, **entry,
             "library_ms": None, "train_episode": train_entry}
+
+
+def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
+    """Phase 38: the paths of the Sinkhorn kernel's general route. SUN-D fcn
+    with ``feature_pyramid: [2, 3]`` over visformer_micro_80 (5 x 5 + 2 x 2 +
+    3 x 3 = 38 nodes): 1-shot episodes, 8 a batch, bf16 encoder, fp32 EMD, 1
+    general-route Sinkhorn launch and 2 tensor-core MHSA launches a batch;
+    the same episodes in fp32 with the kernel against ``sinkhorn_detached``
+    (the accuracy rule); one ``meta_tune_emd`` step (``bs`` 2, fp32) through
+    the trainer's functions, 1 general-route launch per training episode.
+    Then SUN-D fcn over visformer_small at 224 px (14 x 14 = 196 nodes) on
+    phase 37's split, BN statistics from its images as phase 37 sets them:
+    bf16, 1 general-route launch and 4 general-route MHSA launches (its
+    stage-3 blocks) a batch, and the fp32 accuracy rule. Then the kernel
+    timed at the route's shapes against its plain version and its bound.
+    Returns the ``sinkhorn_kernel`` entry of the kernels' JSON line."""
+    import numpy as np
+    import torch
+
+    from fewshot_vit_tpu_torch.core import rng as rng_mod
+    from fewshot_vit_tpu_torch.core.config import Config
+    from fewshot_vit_tpu_torch.core.registry import datasets, models
+    from fewshot_vit_tpu_torch.data.sampler import EpisodeSampler
+    from fewshot_vit_tpu_torch.data.transforms import normalize
+    from fewshot_vit_tpu_torch.eval.emd_eval import evaluate_emd, sample_emd_episode_indices
+    from fewshot_vit_tpu_torch.kernels import sinkhorn as sinkhorn_mod
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas, sinkhorn_reference
+    from fewshot_vit_tpu_torch.models import common, visformer
+    from fewshot_vit_tpu_torch.train import meta_tune_emd as tt
+    from fewshot_vit_tpu_torch.train.state import TrainState
+
+    t0 = time.perf_counter()
+    out, paths = {}, {}
+
+    def make(encoder, dtype, solver, **kw):
+        return models.make("deepemd", encoder=encoder, encoder_args={"use_pallas_attn": True},
+                           solver=solver, dtype=dtype, device=dev, seed=0, **kw)
+
+    def counted(label, head, data, images, n, mhsa_route, n_mhsa_batch, nodes):
+        n_batches = math.ceil(n / SUND_EP_PER_BATCH)
+        _zero_counts(fused_mhsa, sinkhorn_pallas)
+        t1 = time.perf_counter()
+        acc, ci, accs = evaluate_emd(head, data, way=WAY, shot=SHOT, query=QUERY, n_episodes=n,
+                                     ep_per_batch=SUND_EP_PER_BATCH, mode="fcn",
+                                     images_dev=images, seed=11, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = _check_counts(label, {"fused_mhsa": dict(fused_mhsa.route_launches),
+                                       "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)},
+                               {"fused_mhsa": _mhsa_counts(n_mhsa_batch * n_batches, mhsa_route),
+                                "sinkhorn_pallas": {"general": n_batches, "packed": 0}})
+        if accs.shape != (n,) or not ((accs >= 0) & (accs <= 1)).all():
+            _fail(f"{label}: episode accuracies malformed: shape {accs.shape}")
+        print(f"{label} (N = {nodes}): {n} episodes, acc={acc * 100:.2f} +- {ci * 100:.2f} %, "
+              f"{n / wall:.2f} episodes/s, launches {counts} ({n_batches} batches)")
+        return {"episodes": n, "acc": float(acc), "episodes_per_s": n / wall,
+                "launches": counts}
+
+    def fp32_rule(label, heads, data, images, n, seed):
+        """The accuracy rule between the kernel's and the plain solver's
+        episodes, and phase 4's flow rules at the first batch's own costs
+        (the episodes may all be right, where the accuracy rule cannot fail)."""
+        idx = sample_emd_episode_indices(data, n, WAY, SHOT + QUERY, seed)
+        seen, op = [], sinkhorn_mod.sinkhorn_op
+
+        def spy(cost, w1, w2, *args):  # keeps the path's first problems
+            if not seen:
+                seen.append((cost.clone(), w1.clone(), w2.clone()))
+            return op(cost, w1, w2, *args)
+
+        sinkhorn_mod.sinkhorn_op = spy
+        try:
+            accs = [evaluate_emd(h, data, way=WAY, shot=SHOT, query=QUERY, n_episodes=n,
+                                 ep_per_batch=SUND_EP_PER_BATCH, mode="fcn", indices=idx,
+                                 images_dev=images, device=dev)[2] for h in heads]
+        finally:
+            sinkhorn_mod.sinkhorn_op = op
+        rule = _acc_rule(f"{label} fp32 (TF32 off) sinkhorn_pallas vs sinkhorn_detached", *accs)
+        cost, w1, w2 = seen[0]
+        err, limit, ok = _sinkhorn_rules(sinkhorn_pallas(cost, w1, w2),
+                                         sinkhorn_reference(cost, w1, w2))
+        print(f"{label}: the kernel's flow at the path's first {tuple(cost.shape)} costs "
+              f"against the plain version's: max|d|={err:.3e} (tol {SINKHORN_TOL:g} and "
+              f"{limit:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{label}: the kernel's flow at the path's costs breaks phase 4's rules")
+        return {**rule, "path_flow_max_abs_err": err, "path_shape": list(cost.shape)}
+
+    # 1. the reference DeepEMD's feature pyramid over the micro encoder
+    pyramid = {"feature_pyramid": [2, 3]}
+    nodes = 25 + 4 + 9
+    head = make(ENCODER, torch.bfloat16, "sinkhorn_pallas", **pyramid)
+    counted("SUN-D fcn + pyramid bf16", head, ds, images_dev, 8, "tensor_core", 2, nodes)  # warm
+    paths["pyramid_eval"] = counted("SUN-D fcn + pyramid bf16", head, ds, images_dev,
+                                    PYRAMID_EPISODES, "tensor_core", 2, nodes)
+    launches = dict(sinkhorn_pallas.route_launches)
+    del head
+    paths["pyramid_eval"]["fp32_rule"] = fp32_rule(
+        "SUN-D fcn + pyramid", [make(ENCODER, torch.float32, s, **pyramid)
+                                for s in ("sinkhorn_pallas", "sinkhorn_detached")],
+        ds, images_dev, PYRAMID_EPISODES, 12)
+
+    c = SUND_TRAIN
+    way, shot, query, bs = c["way"], c["shot"], c["query"], c["bs"]
+    head = models.make("deepemd", encoder=ENCODER, encoder_args={"use_pallas_attn": True},
+                       temperature=c["temperature"], solver_iters=c["solver_iters"],
+                       solver="sinkhorn_pallas", device=dev, seed=0, **pyramid)
+    fn = tt.make_emd_episode_fn(head, way, shot, query,
+                                tt.make_patch_fn("fcn", c["patch_list"], c["patch_ratio"],
+                                                 c["image_size"], train=True),
+                                ds.mean, ds.std, sfc=False, train=True)
+    state = TrainState(head, tt.build_sund_optimizer(Config(c), head.parameters()))
+    epoch_fn = tt.make_emd_epoch_fn(fn, torch.arange(way, device=dev).repeat(query), bs)
+    sampler = EpisodeSampler(ds.labels, 1, way, shot + query, bs)
+    idx = torch.from_numpy(tt.interleaved(sampler.batch(rng_mod.np_rng(0, 1)), bs, way,
+                                          shot + query)[None].astype(np.int64)).to(dev)
+    before = _state_copy(head)
+    _zero_counts(fused_mhsa, sinkhorn_pallas)
+    state.optimizer.set_epoch(0)
+    loss = epoch_fn(state, images_dev, idx, (0, 1))["loss"].cpu().numpy()
+    counts = _check_counts("SUN-D fcn + pyramid training step", {
+        "fused_mhsa": dict(fused_mhsa.route_launches),
+        "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)},
+        {"fused_mhsa": _mhsa_counts(0, "general"), "sinkhorn_pallas": {"general": bs, "packed": 0}})
+    if not np.isfinite(loss).all():
+        _fail(f"SUN-D fcn + pyramid training step: the loss is not finite: {loss}")
+    _check_moved("SUN-D fcn + pyramid training step", head, before, bn_frozen=True)
+    print(f"SUN-D fcn + pyramid meta_tune_emd step (bs {bs}, fp32): loss {loss.tolist()}, "
+          f"launches {counts}")
+    paths["pyramid_train_step"] = {"loss": loss.tolist(), "launches": counts}
+    del head, fn, state, epoch_fn
+    torch.cuda.empty_cache()
+
+    # 2. visformer_small at 224 px: 196 nodes, which raised on the card before
+    small = datasets.make("synthetic", **SMALL224)
+    small_dev = torch.from_numpy(small.images).to(dev)
+    calib = make("visformer_small", torch.float32, "sinkhorn_pallas")
+    calib.encoder.train()
+    momentum, common.BN_MOMENTUM = common.BN_MOMENTUM, 1.0  # running statistics := the batch's
+    try:
+        with torch.no_grad():  # about 128 images of every class, as phase 37
+            calib.encoder(normalize(small_dev[::max(1, len(small_dev) // 128)], small.mean,
+                                    small.std))
+    finally:
+        common.BN_MOMENTUM = momentum
+    enc_state = calib.encoder.state_dict()
+    del calib
+
+    def small_head(dtype, solver):
+        h = make("visformer_small", dtype, solver)
+        h.encoder.load_state_dict(enc_state)
+        return h.eval()
+
+    per = visformer._VARIANTS["visformer_small"]["depth"][2]  # stage-3 blocks, T = 196
+    paths["small224_eval"] = counted("SUN-D fcn visformer_small 224 px bf16",
+                                     small_head(torch.bfloat16, "sinkhorn_pallas"), small,
+                                     small_dev, SMALL224_EMD_EPISODES, "general", per, 196)
+    paths["small224_eval"]["fp32_rule"] = fp32_rule(
+        "SUN-D fcn visformer_small 224 px",
+        [small_head(torch.float32, s) for s in ("sinkhorn_pallas", "sinkhorn_detached")],
+        small, small_dev, SMALL224_EMD_EPISODES, 13)
+    del small_dev
+    torch.cuda.empty_cache()
+    out["paths"] = paths
+    out["paths_s"] = time.perf_counter() - t0
+
+    # 3. the kernel at the route's shapes against its plain version and bound
+    rows = []
+    for name, b, n in (("pyramid", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 38),
+                       ("pyramid train episode", WAY * QUERY * WAY, 38),
+                       ("old limit", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 64),
+                       ("small 224 fcn", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 196)):
+        cost, w1, w2 = _ot_problem(b, n, n, gen, dev)
+        assert sinkhorn_mod.sinkhorn_route(n, n) == "general"
+        times = [_time_ms(lambda: sinkhorn_pallas(cost, w1, w2)) for _ in range(2)]
+        plain_ms = _time_ms(lambda: sinkhorn_reference(cost, w1, w2), reps=2, warm=1)
+        bound_ms, bound_by = _sinkhorn_bound(b, n, n, 100)
+        ms = sum(times) / 2
+        print(f"timing {tag}: sinkhorn_pallas general route {name} ({b},{n},{n}) iters 100: "
+              f"kernel {ms:.4f} ms ({times}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); kernel/bound {ms / bound_ms:.2f}")
+        rows.append({"case": name, "shape": [b, n, n], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": errs[name]})
+        del cost, w1, w2
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 38 (the general Sinkhorn route's paths) {tag}: {out['s']:.1f} s")
+    head_row = rows[0]
+    return {"name": "sinkhorn_pallas", "kernel": "sinkhorn_kernel", "route": "cuda",
+            "source": "fewshot_vit_tpu_torch/csrc/sinkhorn.cu",
+            "replaces": "fewshot_vit_tpu/kernels/sinkhorn.py:71",
+            "launches": launches["general"], "kernel_route": "general",
+            "route_launches": launches,
+            "launches_path": "phase 38, SUN-D fcn with feature_pyramid [2, 3]",
+            "max_abs_err": head_row["max_abs_err"], "shape": head_row["shape"],
+            "ms": head_row["ms"], "plain_ms": head_row["plain_ms"],
+            "bound_ms": head_row["bound_ms"], "bound_by": head_row["bound_by"],
+            "library_ms": None, "rows": rows, **out}
 
 
 def _state_copy(module):
@@ -908,8 +1162,10 @@ def _train_sund(dev, ds, images_dev, val_ds, tag, profile, card):
     entry = {"sund_train_episodes_per_s": {**eps, "sinkhorn_pallas_bf16": eps_bf16},
              "sund_train_peak_gib": peak, "sund_train_losses": losses.tolist(),
              "sund_val_acc": va}
-    # per route, as the other paths' counts: the check above left all on the general route
+    # per route, as the other paths' counts: the check above left all MHSA launches on the
+    # general route and all Sinkhorn launches on the packed one
     val_counts["fused_mhsa"] = _mhsa_counts(val_counts["fused_mhsa"], "general")
+    val_counts["sinkhorn_pallas"] = {"general": 0, "packed": val_counts["sinkhorn_pallas"]}
     return entry, {"sund_meta_tune": train_counts, "sund_validation": val_counts}
 
 
@@ -4232,10 +4488,14 @@ def main() -> int:
     lap("1-5 and 7 (SUN-M)")
 
     sinkhorn = _run_sund(dev, ds, images_dev, tag, gen, args.profile, card)
-    kernels.append({**sinkhorn, "max_abs_err": sinkhorn_errs["grid"],
+    kernels.append({**sinkhorn, "kernel": "sinkhorn_packed_kernel",
+                    "max_abs_err": sinkhorn_errs["grid"],
                     "max_abs_err_train_shape": sinkhorn_errs["train episode"]})
     torch.cuda.empty_cache()
     lap("6-7 (SUN-D)")
+    # phase 38: the Sinkhorn's general route on its own paths
+    kernels.append(_sinkhorn_general_paths(dev, ds, images_dev, tag, gen, sinkhorn_errs))
+    lap("38 (the general Sinkhorn route)")
 
     # phases 8-10: the two trainers
     val_ds = datasets.make("synthetic", n_classes=20, n_per_class=40, image_size=80, seed=3)
@@ -4335,11 +4595,9 @@ def main() -> int:
         # phases 32-36: the bench entry, the two gates, the graft entry points, the model axis
         slice11, slice11_launches = _slice11(dev, tmp, tag)
     for entry in kernels:
-        def count(c, entry=entry):  # a fused_mhsa entry counts its own route's launches
+        def count(c, entry=entry):  # an entry counts its own kernel's (route's) launches
             n = c[entry["name"]]
-            if isinstance(n, int):
-                return n
-            return n[entry["kernel_route"]] if entry["name"] == "fused_mhsa" else sum(n.values())
+            return n if isinstance(n, int) else n[entry["kernel_route"]]
 
         entry["train_launches"] = {path: count(c) for path, c in train_launches.items()}
         entry["eval_cli_launches"] = {path: count(c) for path, c in eval_launches.items()}

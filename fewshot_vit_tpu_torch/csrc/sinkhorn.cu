@@ -15,9 +15,10 @@
 // once per problem, so over 100 rounds the special-function units (16 exp2
 // per clock per SM), not the bytes, set the least time. All rounds therefore
 // run on-chip, as in the TPU kernel: device memory sees one read of cost, w1
-// and w2 and one write of the flow. The problems are smaller than a warp
-// (N = 9, 13, 25), so what a design must do is keep the lanes and the
-// scheduler's slots busy: few instructions per exponential, no idle lanes.
+// and w2 and one write of the flow. The problems are small (N = 9, 13, 25 on
+// the shipped configurations, 38 with a feature pyramid, 196 over a 14 x 14
+// map), so what a design must do is keep the lanes and the scheduler's slots
+// busy: few instructions per exponential, few idle lanes.
 //
 // Two routes, chosen by the Python wrapper (kernels/sinkhorn.py) from the
 // shape, never silently:
@@ -44,92 +45,45 @@
 //    - One warp per CTA: 1500 (N <= 16) or 3000 CTAs spread evenly over the
 //      SMs and all are resident at once (69 and 80 registers a thread).
 //
-// 2. General route (sinkhorn_kernel): N1, N2 <= 64 (pyramid configurations
-//    reach 38), expf/logf. One warp per problem, kWarps problems per CTA, no
-//    block-wide synchronisation. The warp stages log_k once in shared memory
-//    at an odd row stride (N2 | 1), so the row pass (lane i walks row i) and
-//    the column pass (lane j walks column j) both read 32 distinct banks.
-//    Each lane owns rows lane and lane + 32; f and g sit in shared memory
-//    next to log_k, written by their owning lane and read as broadcasts by
-//    the others, with __syncwarp() between the two half-rounds. The log
-//    marginals stay in the owning lane's registers.
+// 2. General route (sinkhorn_kernel): every shape up to N1, N2 <= 232
+//    (kMaxNodes: a problem's padded log_k fills one CTA's shared memory at
+//    232). It serves pyramid configurations (38 nodes), larger encoder maps
+//    (visformer_small's 14 x 14 = 196, 209 with a pyramid) and any forced
+//    call.
+//    - A problem is padded to NP (a template parameter: every 8 up to 64,
+//      every 16 up to 176, then 200, 216 and 232; the smallest that holds
+//      max(N1, N2)) and staged once as an NP x (NP + 1) tile of
+//      log_k * log2(e) in shared memory, -inf in the padding, with f and g
+//      beside it (0 in the padding). Lane t of a problem owns row t and
+//      column t, NP lanes a problem: at N = 38, 2 of 40 idle, where the old
+//      one-warp-per-problem kernel left 26 of 64 idle. Up to 64 nodes
+//      several problems share a CTA (4 at NP = 40 and 56, 2 at 48; 160 to
+//      224 threads) and one problem's lanes may straddle two warps; beyond
+//      64 one problem takes a CTA.
+//    - Both passes read 32 distinct banks: the row stride NP + 1 is odd and
+//      NP a multiple of 8, so lane g of a CTA reads word g * (NP + 1) + j in
+//      the row pass and g + i * (NP + 1) (plus a multiple of 32) in the
+//      column pass. The potentials are read as 16-byte broadcasts.
+//    - One log-sum-exp per lane and half-round, as the packed route's:
+//      x = log_k + pot is computed once and kept in registers (up to
+//      kCache = 192 values, beyond that read again for the sum), four
+//      partial maxima and four partial sums (element j on chain j % 4),
+//      ex2.approx / lg2.approx, in the TPU kernel's order (max, sum of
+//      2^(x - m), m + log2(sum)). The loops run over all NP elements,
+//      fully unrolled: the smem offsets are immediates and no guard splits
+//      the schedule.
+//    - __syncthreads() between the half-rounds: the CTA's problems move in
+//      step. Lanes beyond N1 (N2) hold all -inf rows (columns): their NaN is
+//      dropped for 0, which keeps -inf + 0 = -inf in the other pass.
+//    - What bounds it: the special-function units (two exponentials per
+//      element and round); the issue slots come next (about six instructions
+//      per element), shared memory (one read per element and pass, half the
+//      special-function time) after them.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
-
-// ---- general route ----
-constexpr int kWarps = 4;      // problems per CTA
-constexpr int kMaxNodes = 64;  // N1, N2 limit: two rows or columns per lane
-constexpr int kSlots = kMaxNodes / 32;
-
-__global__ void __launch_bounds__(kWarps * 32)
-sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ w1,
-                const float* __restrict__ w2, float* __restrict__ flow, int batch,
-                int n1, int n2, float reg, int iters) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * kWarps + warp;
-  if (b >= batch) return;
-  const int stride = n2 | 1;  // odd: see the design note
-  float* lk = smem + warp * (n1 * stride + n1 + n2);
-  float* f = lk + n1 * stride;
-  float* g = f + n1;
-  const int nn = n1 * n2;
-
-  const float* cb = cost + b * nn;
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n2;
-    lk[i * stride + (e - i * n2)] = -cb[e] / reg;
-  }
-  float lw1[kSlots], lw2[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int r = lane + 32 * s;
-    lw1[s] = r < n1 ? logf(w1[b * n1 + r]) : 0.f;
-    lw2[s] = r < n2 ? logf(w2[b * n2 + r]) : 0.f;
-    if (r < n1) f[r] = 0.f;
-    if (r < n2) g[r] = 0.f;
-  }
-  __syncwarp();
-
-  for (int it = 0; it < iters; ++it) {
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {  // rows: f_i from g
-      const int i = lane + 32 * s;
-      if (i < n1) {
-        const float* row = lk + i * stride;
-        float m = -INFINITY;
-        for (int j = 0; j < n2; ++j) m = fmaxf(m, row[j] + g[j]);
-        float sum = 0.f;
-        for (int j = 0; j < n2; ++j) sum += expf(row[j] + g[j] - m);
-        f[i] = lw1[s] - (m + logf(sum));
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {  // columns: g_j from f
-      const int j = lane + 32 * s;
-      if (j < n2) {
-        float m = -INFINITY;
-        for (int i = 0; i < n1; ++i) m = fmaxf(m, lk[i * stride + j] + f[i]);
-        float sum = 0.f;
-        for (int i = 0; i < n1; ++i) sum += expf(lk[i * stride + j] + f[i] - m);
-        g[j] = lw2[s] - (m + logf(sum));
-      }
-    }
-    __syncwarp();
-  }
-
-  float* ob = flow + b * nn;
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n2;
-    const int j = e - i * n2;
-    ob[e] = expf((lk[i * stride + j] + f[i]) + g[j]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Packed route: N1, N2 <= 32
@@ -271,10 +225,159 @@ cudaError_t packed_launch(const float* cost, const float* w1, const float* w2, f
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// General route: N1, N2 <= kMaxNodes
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxNodes = 232;  // NP x (NP + 1) floats of log_k plus 2 NP potentials <= 227 KB
+constexpr int kCache = 192;     // x values a lane keeps in registers through a log-sum-exp
+constexpr int kGeneralThreads = 256;
+
+// problems a CTA holds at padded size NP: up to 64 nodes as many as fill
+// whole warps (NP = 40: 4 problems in 160 threads), beyond that one
+template <int NP>
+__host__ __device__ constexpr int general_problems() {
+  return NP == 40 ? 4 : NP == 48 ? 2 : NP == 56 ? 4 : 1;
+}
+
+// log2(sum_j 2^(lk[j * STEP] + pot[j])) over j < NP, in the order of the TPU
+// kernel's lse: the maximum m, then the sum of 2^(x - m), then m +
+// log2(sum). x is computed once and kept for the sum up to kCache values;
+// beyond that it is computed again. Element j goes to partial chain j % 4 of
+// the maximum and of the sum. The length is the template's, not the
+// problem's: a runtime guard per chunk made the kernel 10-20% slower on an
+// H100 (the padding is -inf and adds 0).
+template <int NP, int STEP>
+__device__ __forceinline__ float lse2_general(const float* __restrict__ lk,
+                                              const float* __restrict__ pot) {
+  constexpr int C = NP < kCache ? NP : kCache;
+  const float4* pot4 = reinterpret_cast<const float4*>(pot);
+  float x[C];
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int q = 0; q < NP / 4; ++q) {
+    const float4 p = pot4[q];
+    const float v[4] = {lk[(4 * q) * STEP] + p.x, lk[(4 * q + 1) * STEP] + p.y,
+                        lk[(4 * q + 2) * STEP] + p.z, lk[(4 * q + 3) * STEP] + p.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * q + k < C) x[4 * q + k] = v[k];
+      m[k] = fmaxf(m[k], v[k]);
+    }
+  }
+  const float mx = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < C; ++j) s[j & 3] += ex2(x[j] - mx);
+#pragma unroll
+  for (int j = C; j < NP; ++j) s[j & 3] += ex2((lk[j * STEP] + pot[j]) - mx);
+  return mx + lg2((s[0] + s[1]) + (s[2] + s[3]));
+}
+
+template <int NP>
+__global__ void __launch_bounds__(kGeneralThreads)
+sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ w1,
+                const float* __restrict__ w2, float* __restrict__ flow, int batch, int n1,
+                int n2, float reg, int iters) {
+  constexpr int kStride = NP + 1;  // odd, and NP a multiple of 8: see the design note
+  constexpr int kP = general_problems<NP>();
+  constexpr int kTile = NP * kStride;
+  extern __shared__ __align__(16) float smem[];
+  float* tiles = smem;                // kP tiles of log_k * log2(e)
+  float* fs = smem + kP * kTile;      // kP x NP potentials f, then g
+  float* gs = fs + kP * NP;
+  const int tid = threadIdx.x;
+  const int p = tid / NP;             // which of the CTA's problems
+  const int t = tid - p * NP;         // the row and column this lane owns
+  const long long b0 = (long long)blockIdx.x * kP;
+  const long long b = b0 + p;
+  const bool active = p < kP;         // lanes beyond the CTA's problems only meet the barriers
+  const bool valid = active && b < batch;
+  const int nn = n1 * n2;
+
+  for (int e = tid; e < kP * kTile; e += blockDim.x) tiles[e] = -INFINITY;
+  for (int e = tid; e < 2 * kP * NP; e += blockDim.x) fs[e] = 0.f;
+  __syncthreads();
+  const long long nb = batch - b0 < kP ? batch - b0 : kP;  // the CTA's problems, contiguous in cost
+  const float* cb = cost + b0 * nn;
+  for (int e = tid; e < nb * nn; e += blockDim.x) {
+    const int q = e / nn;
+    const int r = e - q * nn;
+    const int i = r / n2;
+    tiles[q * kTile + i * kStride + (r - i * n2)] = (-cb[e] / reg) * kLog2e;
+  }
+  const float lw1 = valid && t < n1 ? log2f(w1[b * n1 + t]) : 0.f;
+  const float lw2 = valid && t < n2 ? log2f(w2[b * n2 + t]) : 0.f;
+  __syncthreads();
+
+  const float* lk = tiles + (active ? p : 0) * kTile;
+  float* f = fs + (active ? p : 0) * NP;
+  float* g = gs + (active ? p : 0) * NP;
+  float gt = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    if (active) {
+      const float ft = lw1 - lse2_general<NP, 1>(lk + t * kStride, g);
+      f[t] = t < n1 ? ft : 0.f;
+    }
+    __syncthreads();
+    if (active) {
+      gt = lw2 - lse2_general<NP, kStride>(lk + t, f);
+      gt = t < n2 ? gt : 0.f;
+      g[t] = gt;
+    }
+    __syncthreads();
+  }
+
+  // lane t writes column t: consecutive lanes, consecutive addresses
+  if (valid && t < n2) {
+    float* ob = flow + b * nn;
+    for (int i = 0; i < n1; ++i) ob[i * n2 + t] = ex2((lk[i * kStride + t] + f[i]) + gt);
+  }
+}
+
+template <int NP>
+cudaError_t general_launch(const float* cost, const float* w1, const float* w2, float* flow,
+                           int batch, int n1, int n2, float reg, int iters, cudaStream_t stream) {
+  constexpr int kP = general_problems<NP>();
+  constexpr int kThreads = kP > 1 ? kP * NP : (NP + 31) / 32 * 32;
+  const size_t smem = sizeof(float) * size_t(kP) * (NP * (NP + 1) + 2 * NP);
+  cudaError_t err = cudaFuncSetAttribute(
+      sinkhorn_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = unsigned((batch + kP - 1) / kP);
+  sinkhorn_kernel<NP><<<blocks, kThreads, smem, stream>>>(cost, w1, w2, flow, batch, n1, n2, reg,
+                                                          iters);
+  return cudaGetLastError();
+}
+
+// the padded sizes: every 8 up to 64, every 16 to 176, then 200 (visformer_small's
+// 14 x 14 = 196 nodes), 216 (209 with a feature pyramid) and kMaxNodes
+cudaError_t general_route(const float* c, const float* a, const float* b, float* out, int batch,
+                          int n1, int n2, float reg, int iters, cudaStream_t s) {
+  const int n = n1 > n2 ? n1 : n2;
+#define SINKHORN_GENERAL_SIZE(NP) \
+  if (n <= NP) return general_launch<NP>(c, a, b, out, batch, n1, n2, reg, iters, s)
+  SINKHORN_GENERAL_SIZE(40);
+  SINKHORN_GENERAL_SIZE(48);
+  SINKHORN_GENERAL_SIZE(56);
+  SINKHORN_GENERAL_SIZE(64);
+  SINKHORN_GENERAL_SIZE(80);
+  SINKHORN_GENERAL_SIZE(96);
+  SINKHORN_GENERAL_SIZE(112);
+  SINKHORN_GENERAL_SIZE(128);
+  SINKHORN_GENERAL_SIZE(144);
+  SINKHORN_GENERAL_SIZE(160);
+  SINKHORN_GENERAL_SIZE(176);
+  SINKHORN_GENERAL_SIZE(200);
+  SINKHORN_GENERAL_SIZE(216);
+#undef SINKHORN_GENERAL_SIZE
+  return general_launch<kMaxNodes>(c, a, b, out, batch, n1, n2, reg, iters, s);
+}
+
 }  // namespace
 
 // cost (batch, n1, n2), w1 (batch, n1), w2 (batch, n2), flow (batch, n1, n2):
-// contiguous float32 device arrays. route: 0 = general (N1, N2 <= 64),
+// contiguous float32 device arrays. route: 0 = general (N1, N2 <= 232),
 // 1 = packed (N1, N2 <= 32). Launches on `stream` of `device` and returns
 // cudaGetLastError().
 extern "C" int sinkhorn_forward(int device, int route, const void* cost, const void* w1,
@@ -296,12 +399,5 @@ extern "C" int sinkhorn_forward(int device, int route, const void* cost, const v
     if (n <= 16) return packed_launch<16>(c, a, b, out, batch, n1, n2, reg, iters, s);
     return packed_launch<32>(c, a, b, out, batch, n1, n2, reg, iters, s);
   }
-  const int stride = n2 | 1;
-  const size_t smem = sizeof(float) * kWarps * size_t(n1 * stride + n1 + n2);
-  err = cudaFuncSetAttribute(sinkhorn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = unsigned((batch + kWarps - 1) / kWarps);
-  sinkhorn_kernel<<<blocks, kWarps * 32, smem, s>>>(c, a, b, out, batch, n1, n2, reg, iters);
-  return cudaGetLastError();
+  return general_route(c, a, b, out, batch, n1, n2, reg, iters, s);
 }

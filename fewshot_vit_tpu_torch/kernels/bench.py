@@ -1,6 +1,7 @@
 """Check and time the hand-written kernels alone on one card, route against route.
 
-    python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--ptxas]
+    python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--ptxas] [--sinkhorn-only]
+        [--against OTHER/sinkhorn.cu ...]
 
 Builds ``csrc/*.cu``, prints what ``ptxas -v`` says of every kernel (registers,
 spills, shared memory), holds each route of ``fused_mhsa`` and
@@ -9,7 +10,12 @@ output pre-filled with NaN, and the custom op beside it), and times them in
 turns (route by route, then back) with CUDA events,
 ``scaled_dot_product_attention`` and the plain version beside the MHSA as
 yardsticks. The MHSA runs at the shapes its callers give it (``MHSA_TIMED``)
-and is checked at the routes' edges (``MHSA_EDGES``).
+and is checked at the routes' edges (``MHSA_EDGES``). The Sinkhorn's general
+route is checked and timed at its callers' shapes (``SINKHORN_GENERAL``)
+beside its plain version; ``--against`` builds another
+``sinkhorn.cu`` with the same C interface (an earlier tree's, a variant) into
+a library of its own and times its general route in turns with this one's,
+bare launches both, at the shapes it takes.
 ``chip_smoke.py`` makes the same measurements inside its full run; this is the
 short loop for working on a kernel. Every line names the card and its power
 limit.
@@ -38,6 +44,12 @@ TOL = {F32: 1e-4, BF16: 2e-2}
 MHSA_TIMED = ((10240, 6, 100, 42, (BF16, F32)), (512, 6, 100, 42, (F32, BF16)),
               (640, 6, 100, 42, (F32,)), (32, 6, 196, 128, (BF16, F32)),
               (640, 6, 196, 128, (BF16, F32)))
+# (batch, n1, n2): a SUN-D batch of 8 episodes and a training episode with a
+# feature pyramid (38 nodes), the old general route's limit, visformer_small's
+# 14 x 14 map (196), and ragged and limit cases
+SINKHORN_GENERAL = ((3000, 38, 38), (375, 38, 38), (3000, 64, 64), (3000, 196, 196),
+                    (7, 38, 25), (5, 209, 150), (4, sinkhorn.MAX_NODES, sinkhorn.MAX_NODES))
+SINKHORN_TIMED_GENERAL = 4  # the first four are timed
 MHSA_EDGES = ((64, 4, 512, 128), (4, 2, 129, 64), (4, 2, 128, 128), (32, 6, 25, 85),
               (2, 3, 33, 97), (3, 1, 1, 1), (8, 4, 64, 48))
 
@@ -53,6 +65,88 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _against(src: str, tag: str):
+    """``sinkhorn_forward`` of another source file, built with this tree's
+    flags into a library of its own; a launch on its general route, which
+    raises where that source refuses the shape."""
+    import ctypes
+    import os
+
+    out = build.BUILD_DIR / f"libsinkhorn_against{tag}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    for line in build.ptxas_summary(proc.stdout + proc.stderr):
+        print(f"  ptxas {src}: {line}")
+    fn = ctypes.CDLL(os.path.abspath(out)).sinkhorn_forward
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(cost, w1, w2, out):
+        b, n1, n2 = cost.shape
+        err = fn(cost.device.index, 0, cost.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                 out.data_ptr(), b, n1, n2, 0.05, 100,
+                 torch.cuda.current_stream(cost.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"{src} refused ({b},{n1},{n2}): cudaError {err}")
+
+    return launch
+
+
+def _sinkhorn_general(card, gen, dev, reps, others):
+    """The general route at its callers' shapes: the bare launch into a
+    NaN-filled output and the op against the plain version (1e-4, and 1e-3
+    of the plain flow's largest entry), then the bare launch timed in turns
+    with each other source's where it takes the shape, beside the plain
+    version (``chip_smoke.py`` phase 38 sets each against its bound)."""
+    from ..ops.emd import normalize_weights
+
+    ok = True
+    for k, (bsz, n1, n2) in enumerate(SINKHORN_GENERAL):
+        cost = 2.0 * torch.rand(bsz, n1, n2, generator=gen, device=dev)
+        w1 = normalize_weights(torch.rand(bsz, n1, generator=gen, device=dev))
+        w2 = normalize_weights(torch.rand(bsz, n2, generator=gen, device=dev))
+        want = sinkhorn_reference(cost, w1, w2)
+        out = torch.full_like(cost, float("nan"))
+        sinkhorn._launch(cost, w1, w2, out, 0.05, 100, "general")
+        got = sinkhorn_pallas(cost, w1, w2, route="general")
+        torch.cuda.synchronize()
+        err = max((o - want).abs().max().nan_to_num(float("inf")).item() for o in (out, got))
+        scale = want.abs().max().item()
+        good = err <= 1e-4 and err <= 1e-3 * scale
+        ok &= good
+        print(f"[{card}] sinkhorn_pallas general ({bsz},{n1},{n2}): max|d|={err:.3e}, "
+              f"1e-3 of max flow {1e-3 * scale:.3e}{'' if good else '  FAIL'}")
+        if k >= SINKHORN_TIMED_GENERAL:
+            continue
+        fns = {"this": lambda: sinkhorn._launch(cost, w1, w2, out, 0.05, 100, "general")}
+        for name, launch in others.items():
+            other = torch.full_like(cost, float("nan"))
+            try:
+                launch(cost, w1, w2, other)
+            except RuntimeError as e:
+                print(f"[{card}] {e}")
+                continue
+            torch.cuda.synchronize()
+            print(f"[{card}] {name} general route ({bsz},{n1},{n2}): max|d|="
+                  f"{(other - want).abs().max().nan_to_num(float('inf')).item():.3e}")
+            fns[name] = lambda launch=launch, other=other: launch(cost, w1, w2, other)
+        ms = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            ms[name].append(time_ms(fns[name], reps))
+        plain = time_ms(lambda: sinkhorn_reference(cost, w1, w2), 3, warm=1)
+        this = sum(ms["this"]) / 2
+        print(f"[{card}] sinkhorn general ({bsz},{n1},{n2}) iters 100 ms per bare launch: {ms}, "
+              f"plain {plain:.4f}"
+              + "".join(f", {name}/this {sum(t) / 2 / this:.2f}"
+                        for name, t in ms.items() if name != "this"))
+        del cost, w1, w2, out, got, want
+    return ok
 
 
 def mhsa_routes(q: torch.Tensor):
@@ -90,6 +184,9 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--ptxas", action="store_true", help="print every kernel's ptxas line")
+    p.add_argument("--sinkhorn-only", action="store_true", help="skip the MHSA")
+    p.add_argument("--against", nargs="+", default=(),
+                   help="other sinkhorn.cu files whose general route is timed beside this one's")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernels.bench needs a CUDA device")
@@ -97,7 +194,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card)
-    logs = build.build()
+    logs = build.build(("sinkhorn",) if args.sinkhorn_only else build.SOURCES)
     for name, log in logs.items():
         lines = build.ptxas_summary(log)
         spills = [x for x in lines if "spill" in x]
@@ -107,11 +204,12 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    ok = True
-    for b, h, t, hd in MHSA_EDGES:
+    ok = _sinkhorn_general(card, gen, dev, args.reps,
+                           {src: _against(src, str(i)) for i, src in enumerate(args.against)})
+    for b, h, t, hd in () if args.sinkhorn_only else MHSA_EDGES:
         for dtype in (F32, BF16):
             ok &= _check_mhsa(card, gen, dev, b, h, t, hd, dtype)[-1]
-    for b, h, t, hd, dtypes in MHSA_TIMED:
+    for b, h, t, hd, dtypes in () if args.sinkhorn_only else MHSA_TIMED:
         for dtype in dtypes:
             q, k, v, scale, good = _check_mhsa(card, gen, dev, b, h, t, hd, dtype)
             ok &= good
@@ -144,6 +242,7 @@ def main() -> int:
             torch.cuda.synchronize()
             err = max((o - want).abs().max().nan_to_num(float("inf")).item() for o in (out, got))
             print(f"[{card}] sinkhorn_pallas ({bsz},{n},{n}) {route}: max|d|={err:.3e}")
+            ok &= err <= 1e-4
         for route in ("general", "packed", "packed", "general"):
             ms[route].append(
                 time_ms(lambda: sinkhorn_pallas(cost, w1, w2, route=route), args.reps))

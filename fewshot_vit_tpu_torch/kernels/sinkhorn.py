@@ -15,8 +15,10 @@ kept so a reader finds the counterpart.
 The source holds two routes, and ``sinkhorn_route`` picks one from the shape
 alone: ``packed`` (N1, N2 <= 32: ``log_k`` in registers, ``sinkhorn_lanes``
 lanes per problem, so two problems share a warp when N1, N2 <= 16) and
-``general`` (up to 64 nodes: ``log_k`` in shared memory, one warp per
-problem). ``sinkhorn_pallas(..., route="general")`` or the
+``general`` (up to ``MAX_NODES`` = 232 nodes, what one CTA's shared memory
+holds: ``log_k`` in shared memory, padded to a size the source is compiled
+for, one lane per row and column; a larger shape raises on the card).
+``sinkhorn_pallas(..., route="general")`` or the
 ``force_route("general")`` context forces the general route, for timing one
 against the other. Launches are counted in all and per route.
 
@@ -35,7 +37,9 @@ import torch
 
 from ..ops.emd import sinkhorn
 
-MAX_NODES = 64         # N1, N2 limit of the general route (csrc/sinkhorn.cu kMaxNodes)
+# N1, N2 limit of the general route (csrc/sinkhorn.cu kMaxNodes): the
+# largest padded size (a multiple of 8) whose tile one CTA's shared memory holds
+MAX_NODES = 232
 PACKED_MAX_NODES = 32  # the packed route keeps one row and one column per lane
 ROUTES = ("general", "packed")
 _forced_route: Optional[str] = None
@@ -69,8 +73,8 @@ def _check(cost, w1, w2, out, reg, iters) -> None:
                          f"got {tuple(cost.shape)}")
     b, n1, n2 = cost.shape
     if not (n1 <= MAX_NODES and n2 <= MAX_NODES):
-        raise ValueError(f"sinkhorn_pallas takes N1, N2 <= {MAX_NODES}, "
-                         f"got {tuple(cost.shape)}")
+        raise ValueError(f"sinkhorn_pallas takes N1, N2 <= {MAX_NODES} (the general route's "
+                         f"shared memory), got {tuple(cost.shape)}")
     for name, t, shape in (("w1", w1, (b, n1)), ("w2", w2, (b, n2)),
                            ("out", out, (b, n1, n2))):
         if t.device != cost.device:
@@ -91,7 +95,8 @@ def sinkhorn_route(n1: int, n2: int) -> str:
     """The route ``sinkhorn_pallas`` takes for (B, n1, n2) problems when none
     is forced: a pure function of the shape."""
     if max(n1, n2) > MAX_NODES:
-        raise ValueError(f"sinkhorn_pallas takes N1, N2 <= {MAX_NODES}, got ({n1}, {n2})")
+        raise ValueError(f"sinkhorn_pallas takes N1, N2 <= {MAX_NODES} (the general route's "
+                         f"shared memory), got ({n1}, {n2})")
     return "packed" if max(n1, n2) <= PACKED_MAX_NODES else "general"
 
 

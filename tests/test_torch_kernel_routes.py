@@ -89,12 +89,16 @@ def test_mhsa_odd_stride_is_not_vectorized(dtype, narrow):
     (13, 13, "packed", 16), (9, 13, "packed", 16), (16, 16, "packed", 16),
     (17, 9, "packed", 32), (25, 25, "packed", 32), (32, 32, "packed", 32),
     (33, 33, "general", None), (9, 33, "general", None), (64, 64, "general", None),
-    (65, 9, None, None),
+    (65, 9, "general", None), (196, 196, "general", None), (209, 150, "general", None),
+    (tks.MAX_NODES, tks.MAX_NODES, "general", None), (tks.MAX_NODES + 1, 9, None, None),
 ])
 def test_sinkhorn_route_and_lanes(n1, n2, route, lanes):
     if route is None:
-        with pytest.raises(ValueError, match="<= 64"):
+        with pytest.raises(ValueError, match=f"<= {tks.MAX_NODES} .the general route"):
             tks.sinkhorn_route(n1, n2)
+        with pytest.raises(ValueError, match=f"<= {tks.MAX_NODES}"):
+            tks._check(torch.zeros(1, n1, n2), torch.ones(1, n1), torch.ones(1, n2),
+                       torch.zeros(1, n1, n2), 0.05, 100)
         return
     assert tks.sinkhorn_route(n1, n2) == route
     assert tks._resolve_route(n1, n2, None) == route

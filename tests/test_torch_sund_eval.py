@@ -1,7 +1,9 @@
 """Port parity, the slice as a whole: SUN-D episodic eval of a narrow
 DeepEMD on the synthetic dataset, the JAX ``make_emd_episode_fn`` +
 ``make_emd_eval_run_fn`` against the port's ``evaluate_emd``, same weights
-(carried across) and the same interleaved episode indices."""
+(carried across) and the same interleaved episode indices; fcn with the
+reference's feature pyramid (38 nodes) and over a 10 x 10 map (100 nodes)
+with ``solver: sinkhorn_pallas``, the JAX kernel in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import fewshot_vit_tpu.kernels.sinkhorn as jks
 from fewshot_vit_tpu.data.datasets import synthetic as j_synthetic
 from fewshot_vit_tpu.eval.emd_eval import (
     group_episode_indices as j_group,
@@ -29,6 +32,7 @@ from fewshot_vit_tpu_torch.eval.emd_eval import (
     sample_emd_episode_indices,
 )
 from fewshot_vit_tpu_torch.heads.deepemd import DeepEMD as TDeepEMD
+from fewshot_vit_tpu_torch.kernels import sinkhorn as tks
 from fewshot_vit_tpu_torch.models.visformer import Visformer as TVisformer
 from fewshot_vit_tpu_torch.train.meta_tune_emd import (
     make_emd_episode_fn as t_episode_fn,
@@ -83,9 +87,26 @@ def test_indices_are_the_jax_protocol(setup):
     np.testing.assert_array_equal(group_episode_indices(idx[:3], 2), j_group(idx[:3], 2))
 
 
-@pytest.mark.parametrize("mode", ["grid", "fcn"])
-def test_episode_accuracies_identical_to_jax(setup, mode):
+def _pyramid_heads(variables, monkeypatch):
+    """The reference DeepEMD's ``feature_pyramid: [2, 3]`` (5 x 5 + 2 x 2 + 3 x
+    3 = 38 nodes at 80 px) with ``solver: sinkhorn_pallas`` in both packages,
+    the JAX kernel in interpret mode (as the JAX package's dispatch test runs
+    it); the port's CPU tensors take the kernel's plain version."""
+    orig = jks.sinkhorn_pallas
+    monkeypatch.setattr(jks, "sinkhorn_pallas",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    kw = dict(feature_pyramid=(2, 3), solver="sinkhorn_pallas")
+    jhead = JDeepEMD(encoder=JVisformer(**SMALL_VISFORMER), **kw)
+    thead = load_flax(TDeepEMD(TVisformer(**SMALL_VISFORMER, device="cpu"), **kw), variables)
+    return jhead, thead
+
+
+@pytest.mark.parametrize("mode", ["grid", "fcn", "fcn_pyramid"])
+def test_episode_accuracies_identical_to_jax(setup, mode, monkeypatch):
     jds, tds, jhead, variables, thead, idx = setup
+    if mode == "fcn_pyramid":
+        jhead, thead = _pyramid_heads(variables, monkeypatch)
+        mode = "fcn"
     want = _jax_run(jds, jhead, variables, idx, mode)
     m, h, accs = _port(tds, thead, idx, mode)
     assert accs.shape == (N_EP,) and accs.dtype == np.float32
@@ -105,6 +126,53 @@ def test_logits_match_jax(setup, mode):
         got = t_fn(torch.from_numpy(tds.images[idx[:1]]), [0])
     assert got.shape == (1, WAY * QUERY, WAY) and got.dtype == torch.float32
     np.testing.assert_allclose(got[0].numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_pyramid_nodes_reach_the_solver(setup, monkeypatch):
+    """The pyramid's 38 nodes are what the Sinkhorn gets: (E * Q * way, 38, 38)."""
+    _, tds, _, variables, _, idx = setup
+    _, thead = _pyramid_heads(variables, monkeypatch)
+    shapes = []
+    orig = tks.sinkhorn_op
+
+    def spy(cost, *a):
+        shapes.append(tuple(cost.shape))
+        return orig(cost, *a)
+
+    monkeypatch.setattr(tks, "sinkhorn_op", spy)
+    _port(tds, thead, idx[:2], "fcn")
+    assert shapes == [(EPB * WAY * QUERY * WAY, 38, 38)]
+
+
+@pytest.fixture(scope="module")
+def setup160():
+    """A narrow Visformer at 160 px: a 10 x 10 map, so fcn matches 100 nodes,
+    beyond the old general route's 64."""
+    enc = dict(SMALL_VISFORMER, img_size=160, init_channels=8, embed_dim=48)
+    ds_kw = dict(n_classes=6, n_per_class=6, image_size=160, seed=2)
+    jds, tds = j_synthetic(**ds_kw), t_synthetic(**ds_kw)
+    kw = dict(solver="sinkhorn_pallas")
+    jhead = JDeepEMD(encoder=JVisformer(**enc), **kw)
+    variables = randomize_bn(numpy_tree(
+        jhead.init(jax.random.key(6), jnp.zeros((1, 160, 160, 3), jnp.float32))))
+    thead = load_flax(TDeepEMD(TVisformer(**enc, device="cpu"), **kw), variables)
+    idx = sample_emd_episode_indices(tds, 2, WAY, SHOT + QUERY, SEED)
+    return jds, tds, jhead, variables, thead, idx
+
+
+def test_episode_accuracies_identical_to_jax_beyond_64_nodes(setup160, monkeypatch):
+    jds, tds, jhead, variables, thead, idx = setup160
+    orig = jks.sinkhorn_pallas
+    monkeypatch.setattr(jks, "sinkhorn_pallas",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    shapes = []
+    spy_orig = tks.sinkhorn_op
+    monkeypatch.setattr(tks, "sinkhorn_op", lambda cost, *a: (
+        shapes.append(tuple(cost.shape)), spy_orig(cost, *a))[1])
+    want = _jax_run(jds, jhead, variables, idx, "fcn")
+    _, _, accs = _port(tds, thead, idx, "fcn")
+    assert shapes == [(EPB * WAY * QUERY * WAY, 100, 100)]
+    np.testing.assert_array_equal(accs, want)
 
 
 def test_cached_equals_direct_and_grouping_is_invisible(setup):

@@ -351,6 +351,46 @@ def test_trajectory_matches_jax(setup):
         assert torch.equal(got[k], start[k]), k
 
 
+def test_pyramid_step_matches_jax(setup, interpret_pallas):
+    """One ``meta_tune_emd`` step with the reference's ``feature_pyramid:
+    [2, 3]`` (fcn, ``solver: sinkhorn_pallas``, ``bs`` 2) against JAX's, the
+    JAX kernel in interpret mode: loss within 1e-4, parameters within 2e-5,
+    every parameter moved, BN statistics untouched."""
+    variables, images = setup
+    cfg = {"lr": 0.02, "step_size": 1, "gamma": 0.5, "max_epoch": 1}
+    epb = 2
+    n = WAY * (SHOT + QUERY)
+    idx = np.random.default_rng(9).integers(0, 40, (1, epb, n)).astype(np.int32)
+    kw = dict(solver="sinkhorn_pallas", solver_iters=20, feature_pyramid=(2, 3))
+
+    jhead = JDeepEMD(encoder=JVisformer(**TINY), **kw)
+    tx = jt.build_sund_optimizer(JConfig(cfg), 1)
+    j_fn = jt.make_emd_episode_fn(jhead, WAY, SHOT, QUERY,
+                                  jt.make_patch_fn("fcn", [2, 3], 9, 2.0, 32, True),
+                                  MEAN, STD, sfc=False, train=True)
+    j_epoch = jt.make_emd_epoch_fn(j_fn, tx, jnp.tile(jnp.arange(WAY), QUERY), epb)
+    jstate = JTrainState.create(jax.tree_util.tree_map(jnp.asarray, variables), tx)
+    jstate, j_ms = j_epoch(jstate, jnp.asarray(images), jnp.asarray(idx), jax.random.key(0))
+
+    head = load_flax(TDeepEMD(TVisformer(**TINY, device="cpu"), **kw), variables)
+    fn = tt.make_emd_episode_fn(head, WAY, SHOT, QUERY,
+                                tt.make_patch_fn("fcn", [2, 3], 2.0, 32, train=True),
+                                MEAN, STD, sfc=False, train=True)
+    state = TrainState(head, tt.build_sund_optimizer(Config(cfg), head.parameters()))
+    epoch = tt.make_emd_epoch_fn(fn, torch.arange(WAY).repeat(QUERY), epb)
+    state.optimizer.set_epoch(0)
+    launches = tks.sinkhorn_pallas.launches
+    ms = epoch(state, torch.from_numpy(images), torch.from_numpy(idx.astype(np.int64)), (0, 1))
+    assert tks.sinkhorn_pallas.launches == launches  # CPU tensors: the plain version
+    np.testing.assert_allclose(ms["loss"].numpy(), np.asarray(j_ms["loss"]), rtol=0, atol=1e-4)
+    got, start = state.variables, from_flax(variables)
+    for k, v in from_flax({"params": numpy_tree(jstate.params)}).items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0, atol=2e-5, err_msg=k)
+        assert not torch.equal(got[k], start[k]), k
+    for k in from_flax({"batch_stats": variables["batch_stats"]}):
+        assert torch.equal(got[k], start[k]), k
+
+
 def test_validate_episode_mesh_messages():
     cases = [({"data": 4}, True, 4), ({"model": 4}, False, 4), ({"data": 4}, False, 6)]
     for mesh, accum, bs in cases:
