@@ -3183,7 +3183,8 @@ def _export_artifacts(dev, tmp, pth, tag):
 
 def _profile_dir_phase(tmp, tag):
     """Phase 27: the pretrain CLI for 2 epochs with ``--profile-dir``: a
-    Chrome trace of epoch 2 holding CUDA kernel events."""
+    Chrome trace of epoch 2 holding CUDA kernel events, and the epoch's
+    spans beside it."""
     import torch
 
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
@@ -3203,9 +3204,13 @@ def _profile_dir_phase(tmp, tag):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
-    if traces != ["epoch2.trace.json"]:
-        _fail(f"--profile-dir wrote {traces}, expected ['epoch2.trace.json']")
-    path = os.path.join(prof_dir, traces[0])
+    if traces != ["epoch2.spans.json", "epoch2.trace.json"]:
+        _fail(f"--profile-dir wrote {traces}, expected ['epoch2.spans.json', 'epoch2.trace.json']")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        steps = json.load(f)["spans"].get("train.step", [])
+    if not steps or min(s["device_ms"] for s in steps) <= 0:
+        _fail(f"--profile-dir's spans hold {len(steps)} train.step spans, or one of no device time")
+    path = os.path.join(prof_dir, traces[1])
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     cats = {}

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core import rng as rng_mod
+from ..core import trace
 from ..core.device import resolve_device
 from ..core.rng import torch_generator
 from ..data.datasets import ArrayDataset
@@ -80,9 +81,12 @@ def make_emd_eval_run_fn(episode_fn: Callable, labels: torch.Tensor, mesh=None,
         lab = labels[None].expand(block.stop - block.start, -1)
         accs = []
         for b, idx_b in enumerate(idx):
-            kw = batch_draws(b * epb, block) if batch_draws is not None else {}
-            ids = range(b * epb, (b + 1) * epb)[block]
-            accs.append(per_episode_acc(episode_fn(data[idx_b[block]], ids, **kw), lab))
+            with trace.span("eval.batch"):
+                kw = batch_draws(b * epb, block) if batch_draws is not None else {}
+                ids = range(b * epb, (b + 1) * epb)[block]
+                logits = episode_fn(data[idx_b[block]], ids, **kw)
+                with trace.span("eval.accuracy"):
+                    accs.append(per_episode_acc(logits, lab))
         accs = torch.stack(accs)  # (n_batches, this rank's episodes)
         if mesh is not None:
             accs = mesh.gather(accs, dim=1)
@@ -146,7 +150,8 @@ def evaluate_emd(
     dev = resolve_device(device)
     _on_device(head, dev)
     if indices is None:
-        indices = sample_emd_episode_indices(dataset, n_episodes, way, shot + query, seed)
+        with trace.span("eval.sample"):
+            indices = sample_emd_episode_indices(dataset, n_episodes, way, shot + query, seed)
     n_episodes = len(indices)
     idx = torch.from_numpy(group_episode_indices(indices, max(1, ep_per_batch))
                            .astype(np.int64)).to(dev)
@@ -175,6 +180,8 @@ def evaluate_emd(
                     "uniforms": u[..., block.start * n_img:block.stop * n_img]}
 
     run = make_emd_eval_run_fn(ep_fn, labels, mesh, batch_draws)
-    accs = run(data, idx).cpu().numpy()[:n_episodes]
-    m, h = normal_confidence_interval(accs)
+    accs = run(data, idx)
+    with trace.span("eval.collect"):
+        accs = accs.cpu().numpy()[:n_episodes]
+        m, h = normal_confidence_interval(accs)
     return m, h, accs

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core import rng as rng_mod
+from ..core import trace
 from ..core.device import resolve_device
 from ..data.datasets import ArrayDataset
 from ..data.sampler import EpisodeSampler
@@ -90,8 +91,9 @@ def evaluate(
     dev = resolve_device(device)
     _on_device(head, dev)
     if indices is None:
-        indices = sample_episode_indices(
-            dataset, n_episodes, way, shot + query, ep_per_batch, seed)
+        with trace.span("eval.sample"):
+            indices = sample_episode_indices(
+                dataset, n_episodes, way, shot + query, ep_per_batch, seed)
     idx_all = torch.from_numpy(np.asarray(indices, np.int64)).to(dev)
     epb = ep_per_batch
     if mesh is not None:  # this rank's block of every batch's episodes
@@ -103,14 +105,19 @@ def evaluate(
     labels = make_nk_label(way, query, epb, device=dev)
     accs = []
     for idx in idx_all:
-        x = normalize(images_dev[idx], dataset.mean, dataset.std)
-        xs, xq = split_shot_query(x, way, shot, query, epb)
-        accs.append(per_episode_acc(head(xs, xq), labels))
-    accs = torch.stack(accs)  # (n_batches, epb)
-    if mesh is not None:
-        accs = mesh.gather(accs, dim=1)
-    accs = accs.reshape(-1).cpu().numpy()[:n_episodes]
-    m, h = mean_confidence_interval(accs)
+        with trace.span("eval.batch"):
+            with trace.span("eval.inputs"):
+                x = normalize(images_dev[idx], dataset.mean, dataset.std)
+                xs, xq = split_shot_query(x, way, shot, query, epb)
+            logits = head(xs, xq)
+            with trace.span("eval.accuracy"):
+                accs.append(per_episode_acc(logits, labels))
+    with trace.span("eval.collect"):
+        accs = torch.stack(accs)  # (n_batches, epb)
+        if mesh is not None:
+            accs = mesh.gather(accs, dim=1)
+        accs = accs.reshape(-1).cpu().numpy()[:n_episodes]
+        m, h = mean_confidence_interval(accs)
     return m, h, accs
 
 

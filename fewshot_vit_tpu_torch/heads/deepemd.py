@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
 from ..core.rng import DEFAULT_SEED
@@ -148,21 +149,22 @@ def emd_logits(
                          metric)                          # (..., Q, way, Nq, Np)
     w1 = normalize_weights(w_query)
     w2 = normalize_weights(w_proto)
-    if solver_impl == "exact":
-        flow = exact_flows(1.0 - sim, w1, w2)
-    elif solver_impl == "pallas" and not differentiable:
-        from ..kernels.sinkhorn import sinkhorn_pallas
+    with trace.span("emd.solver"):
+        if solver_impl == "exact":
+            flow = exact_flows(1.0 - sim, w1, w2)
+        elif solver_impl == "pallas" and not differentiable:
+            from ..kernels.sinkhorn import sinkhorn_pallas
 
-        cost = 1.0 - sim
-        lead = cost.shape[:-2]
-        n1, n2 = cost.shape[-2:]
-        flow = sinkhorn_pallas(
-            cost.reshape(-1, n1, n2), w1.reshape(-1, n1), w2.reshape(-1, n2),
-            reg=solver_reg, iters=solver_iters,
-        ).reshape(*lead, n1, n2)
-    else:
-        flow = sinkhorn(1.0 - sim, w1, w2, reg=solver_reg, iters=solver_iters,
-                        differentiable=differentiable)
+            cost = 1.0 - sim
+            lead = cost.shape[:-2]
+            n1, n2 = cost.shape[-2:]
+            flow = sinkhorn_pallas(
+                cost.reshape(-1, n1, n2), w1.reshape(-1, n1), w2.reshape(-1, n2),
+                reg=solver_reg, iters=solver_iters,
+            ).reshape(*lead, n1, n2)
+        else:
+            flow = sinkhorn(1.0 - sim, w1, w2, reg=solver_reg, iters=solver_iters,
+                            differentiable=differentiable)
     return emd_distance(sim, flow, temperature)
 
 
@@ -434,12 +436,14 @@ class DeepEMD(nn.Module):
 
     def meta(self, proto_nodes: torch.Tensor, query_nodes: torch.Tensor) -> torch.Tensor:
         """proto (..., way, N, C), query (..., Q, N, C) -> (..., Q, way)."""
-        return emd_logits(
-            proto_nodes, query_nodes, temperature=self.temperature, metric=self.metric,
-            norm=self.norm, solver_reg=self.solver_reg, solver_iters=self.solver_iters,
-            differentiable=self.solver == "sinkhorn_unrolled",
-            solver_impl={"sinkhorn_pallas": "pallas", "exact": "exact"}.get(self.solver, "xla"),
-        )
+        with trace.span("emd.head"):
+            return emd_logits(
+                proto_nodes, query_nodes, temperature=self.temperature, metric=self.metric,
+                norm=self.norm, solver_reg=self.solver_reg, solver_iters=self.solver_iters,
+                differentiable=self.solver == "sinkhorn_unrolled",
+                solver_impl={"sinkhorn_pallas": "pallas", "exact": "exact"}.get(self.solver,
+                                                                                "xla"),
+            )
 
 
 @models.register("deepemd")

@@ -15,6 +15,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
 from .. import models as _models  # noqa: F401  (registers the encoders)
@@ -46,12 +47,13 @@ class MetaBaseline(nn.Module):
         img = x_shot.shape[3:]
         x_all = torch.cat([x_shot.reshape(-1, *img), x_query.reshape(-1, *img)])
         _, pooled = self.encoder(x_all)
-        n_shot = e * way * shot
-        feat_shot = pooled[:n_shot].reshape(e, way, shot, -1)
-        feat_query = pooled[n_shot:].reshape(e, q, -1)
-        proto = feat_shot.mean(dim=2)  # (E, way, C)
-        metric = "cos" if self.method == "cos" else "sqr"
-        return compute_logits(feat_query.float(), proto.float(), metric, self.temp)
+        with trace.span("head.logits"):
+            n_shot = e * way * shot
+            feat_shot = pooled[:n_shot].reshape(e, way, shot, -1)
+            feat_query = pooled[n_shot:].reshape(e, q, -1)
+            proto = feat_shot.mean(dim=2)  # (E, way, C)
+            metric = "cos" if self.method == "cos" else "sqr"
+            return compute_logits(feat_query.float(), proto.float(), metric, self.temp)
 
 
 @models.register("meta-baseline")

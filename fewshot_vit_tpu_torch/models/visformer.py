@@ -30,6 +30,7 @@ from typing import Any, Optional, Sequence
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
 from ..kernels.attention import attention_core
@@ -282,18 +283,25 @@ class Visformer(Foldable, nn.Module):
         self.to(device).eval()
 
     def forward(self, x: torch.Tensor):
-        x = self.stem(x) if hasattr(self, "stem") else self.patch_embed1(x)
-        x = self.pos_drop(x + self.pos_embed1.permute(0, 2, 3, 1))
-        for blk in self.stage1:
-            x = blk(x)
-        x = self.pos_drop(self.patch_embed2(x) + self.pos_embed2.permute(0, 2, 3, 1))
-        for blk in self.stage2:
-            x = blk(x)
-        x = self.pos_drop(self.patch_embed3(x) + self.pos_embed3.permute(0, 2, 3, 1))
-        for blk in self.stage3:
-            x = blk(x)
-        x = self.norm(x)
-        return x, global_avg_pool(x)
+        # spans: a stage holds the patch embedding that feeds it; stage 3 the
+        # final norm and pooling
+        with trace.span("encoder"):
+            with trace.span("encoder.stem"):
+                x = self.stem(x) if hasattr(self, "stem") else self.patch_embed1(x)
+                x = self.pos_drop(x + self.pos_embed1.permute(0, 2, 3, 1))
+            with trace.span("encoder.stage1"):
+                for blk in self.stage1:
+                    x = blk(x)
+            with trace.span("encoder.stage2"):
+                x = self.pos_drop(self.patch_embed2(x) + self.pos_embed2.permute(0, 2, 3, 1))
+                for blk in self.stage2:
+                    x = blk(x)
+            with trace.span("encoder.stage3"):
+                x = self.pos_drop(self.patch_embed3(x) + self.pos_embed3.permute(0, 2, 3, 1))
+                for blk in self.stage3:
+                    x = blk(x)
+                x = self.norm(x)
+                return x, global_avg_pool(x)
 
 
 _VARIANTS = {

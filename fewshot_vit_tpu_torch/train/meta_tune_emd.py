@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import rng as rng_mod
+from ..core import trace
 from ..core.rng import DEFAULT_SEED, torch_generator
 from ..data.patches import draw_grid_ratios, grid_patches, sampling_patches
 from ..data.transforms import normalize
@@ -85,8 +86,9 @@ def episode_logits(head, nodes: torch.Tensor, way: int, shot: int, sfc: bool,
     proto = nodes[:, :k].reshape(e, shot, way, *nodes.shape[2:]).mean(dim=1)
     if sfc and shot > 1:
         refine = sfc_refine_explicit if explicit_sfc else sfc_refine
-        proto = refine(proto, nodes[:, :k], way, shot, episode_ids=episode_ids,
-                       seed=seed, perms=perms, **sfc_kw)
+        with trace.span("emd.sfc", opaque=True):  # its steps' matchings are not spans
+            proto = refine(proto, nodes[:, :k], way, shot, episode_ids=episode_ids,
+                           seed=seed, perms=perms, **sfc_kw)
     return head.meta(proto, nodes[:, k:])
 
 
@@ -115,6 +117,8 @@ def make_emd_episode_fn(head, way: int, shot: int, query: int, patch_fn: Callabl
     gradients, ``scan`` loops): the form ``torch.export`` traces, with the
     perms passed as ``perms=`` (``eval/export.py`` bakes them from ``seed``)."""
     sfc_kw = dict(sfc_kw or {})
+    inputs, patches = ("train.augment", "train.patches") if train else ("eval.inputs",
+                                                                      "eval.patches")
 
     def fn(images_u8: torch.Tensor, episode_ids: Sequence[int],
            key: Optional[Sequence[int]] = None, perms: Optional[torch.Tensor] = None,
@@ -122,8 +126,11 @@ def make_emd_episode_fn(head, way: int, shot: int, query: int, patch_fn: Callabl
         e, n = images_u8.shape[:2]
         dev = images_u8.device
         key = tuple(key) if key is not None else (seed, int(episode_ids[0]))
-        flat = images_u8.reshape(e * n, *images_u8.shape[2:])
-        x = normalize(patch_fn(flat, torch_generator(dev, *key, 1), **draws), mean, std)
+        with trace.span(inputs):
+            flat = images_u8.reshape(e * n, *images_u8.shape[2:])
+            with trace.span(patches):
+                x = patch_fn(flat, torch_generator(dev, *key, 1), **draws)
+            x = normalize(x, mean, std)
         if not train:
             nodes = head.encode_nodes(x)
         else:

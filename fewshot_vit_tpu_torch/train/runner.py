@@ -21,6 +21,7 @@ from ..checkpoint.reference import (
     load_reference_head_checkpoint,
 )
 from ..core import rng as rng_mod
+from ..core import trace
 from ..core.config import Config, load_config
 from ..core.device import resolve_device
 from ..core.log import RunLogger
@@ -59,8 +60,11 @@ def parse_args(description: str, argv=None) -> Tuple[Config, argparse.Namespace]
 def profile_epoch(args: argparse.Namespace, epoch: int):
     """Context manager: a ``torch.profiler`` trace (CPU and, with a card,
     CUDA activity) around epoch 2 when ``--profile-dir`` is set, written as a
-    Chrome trace into that directory on exit; otherwise a ``nullcontext``."""
+    Chrome trace into that directory on exit, beside the epoch's spans and
+    counters (``core.trace``; the spans are on while the profiler records)
+    as ``epoch2.spans.json``; otherwise a ``nullcontext``."""
     import contextlib
+    import json
 
     profile_dir = getattr(args, "profile_dir", None)
     if not (profile_dir and epoch == 2 and is_main_process()):
@@ -73,10 +77,13 @@ def profile_epoch(args: argparse.Namespace, epoch: int):
 
     @contextlib.contextmanager
     def traced():
+        trace.reset()
         with profile(activities=activities) as prof:
             yield prof
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, f"epoch{epoch}.trace.json"))
+        with open(os.path.join(profile_dir, f"epoch{epoch}.spans.json"), "w") as f:
+            json.dump(trace.reset(), f)
 
     return traced()
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import trace
 from ..core.rng import torch_generator
 from ..data.transforms import MEAN, STD, normalize
 from ..models.common import draw_rows, draws_from, frozen_bn
@@ -85,11 +86,14 @@ def step_inputs(images_u8: torch.Tensor, key: Sequence[int], preprocess_fn, mean
 
 
 def _backward_and_update(state: TrainState, loss: torch.Tensor, remat: bool) -> None:
-    state.optimizer.zero_grad()
-    with kept_bn_stats(state.module) if remat else contextlib.nullcontext():
+    state.optimizer.zero_grad()  # sets the gradients to None: no device work
+    with trace.span("train.backward"), \
+            kept_bn_stats(state.module) if remat else contextlib.nullcontext():
         loss.backward()
-    sync_tensors([p.grad for p in state.module.parameters()])
-    state.optimizer.step()
+    with trace.span("train.grad_sync"):
+        sync_tensors([p.grad for p in state.module.parameters()])
+    with trace.span("train.optimizer"):
+        state.optimizer.step()
     state.step += 1
 
 
@@ -103,13 +107,16 @@ def make_pretrain_step(
     augmentation (default: plain normalization). ``ema_decay`` updates
     ``state.ema_params`` after each optimizer step. Metrics: ``loss``, ``acc``."""
 
+    @trace.span("train.step")
     def step(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor,
              key: Sequence[int]) -> Dict[str, torch.Tensor]:
-        x = step_inputs(images_u8, key, preprocess_fn, mean, std)
+        with trace.span("train.augment"):
+            x = step_inputs(images_u8, key, preprocess_fn, mean, std)
         labels = local_block(labels.long())
-        state.module.train()
-        logits = train_forward(state.module, x, key, remat)
-        loss = F.cross_entropy(logits.float(), labels)
+        with trace.span("train.student"):
+            state.module.train()
+            logits = train_forward(state.module, x, key, remat)
+            loss = F.cross_entropy(logits.float(), labels)
         _backward_and_update(state, loss, remat)
         if state.ema_params is not None and ema_decay:
             state.ema_update(ema_decay)
@@ -161,19 +168,23 @@ def make_sun_step(
     SAME batch as ``strong_u8`` and ``weak_u8``. Metrics: ``loss``,
     ``cls_loss``, ``token_loss``, ``acc``."""
 
+    @trace.span("train.step")
     def step(state: TrainState, teacher: nn.Module, strong_u8: torch.Tensor,
              weak_u8: torch.Tensor, labels: torch.Tensor,
              key: Sequence[int]) -> Dict[str, torch.Tensor]:
-        if dual_view_fn is not None:
-            xs, xw = dual_view_fn(strong_u8, torch_generator(strong_u8.device, *key, 7))
-            xs, xw = local_block(xs), local_block(xw)
-        else:
-            xs = normalize(local_block(strong_u8), mean, std)
-            xw = normalize(local_block(weak_u8), mean, std)
+        with trace.span("train.augment"):
+            if dual_view_fn is not None:
+                xs, xw = dual_view_fn(strong_u8, torch_generator(strong_u8.device, *key, 7))
+                xs, xw = local_block(xs), local_block(xw)
+            else:
+                xs = normalize(local_block(strong_u8), mean, std)
+                xw = normalize(local_block(weak_u8), mean, std)
         labels = local_block(labels.long())
-        soft = sun_targets(teacher, xw, smoothing, soft_k, bg_tokens)
-        loss, cls_loss, token_loss, y = sun_loss(state.module, xs, labels, soft, key,
-                                                 token_weight, remat)
+        with trace.span("train.teacher"):
+            soft = sun_targets(teacher, xw, smoothing, soft_k, bg_tokens)
+        with trace.span("train.student"):
+            loss, cls_loss, token_loss, y = sun_loss(state.module, xs, labels, soft, key,
+                                                     token_weight, remat)
         _backward_and_update(state, loss, remat)
         return mean_metrics({"loss": loss.detach(), "cls_loss": cls_loss.detach(),
                              "token_loss": token_loss.detach(),
@@ -198,32 +209,33 @@ def make_meta_tune_step(
     of the model still in training mode. Metrics are 0-d tensors on the
     device; nothing here synchronises with the host."""
 
+    @trace.span("train.step")
     def step(state: TrainState, x_shot_u8: torch.Tensor, x_query_u8: torch.Tensor,
              key: Sequence[int]) -> Dict[str, torch.Tensor]:
         head, dev = state.module, x_shot_u8.device
-        if preprocess_fn is not None:
-            img = x_shot_u8.shape[3:]
-            xs = preprocess_fn(x_shot_u8.reshape(-1, *img), torch_generator(dev, *key, 7))
-            xs = local_block(xs.reshape(*x_shot_u8.shape[:3], *xs.shape[1:]))
-            xq = preprocess_fn(x_query_u8.reshape(-1, *img), torch_generator(dev, *key, 7, 1))
-            xq = local_block(xq.reshape(*x_query_u8.shape[:2], *xq.shape[1:]))
-        else:
-            xs = normalize(local_block(x_shot_u8), mean, std)
-            xq = normalize(local_block(x_query_u8), mean, std)
+        with trace.span("train.augment"):
+            if preprocess_fn is not None:
+                img = x_shot_u8.shape[3:]
+                xs = preprocess_fn(x_shot_u8.reshape(-1, *img), torch_generator(dev, *key, 7))
+                xs = local_block(xs.reshape(*x_shot_u8.shape[:3], *xs.shape[1:]))
+                xq = preprocess_fn(x_query_u8.reshape(-1, *img),
+                                   torch_generator(dev, *key, 7, 1))
+                xq = local_block(xq.reshape(*x_query_u8.shape[:2], *xq.shape[1:]))
+            else:
+                xs = normalize(local_block(x_shot_u8), mean, std)
+                xq = normalize(local_block(x_query_u8), mean, std)
         labels = make_nk_label(way, query, xs.shape[0], device=dev).reshape(-1)
-        head.train()
-        # the head encodes cat(shots, queries): each segment is this rank's block
-        rows = shard_rows(xs.shape[0] * xs.shape[1] * xs.shape[2], xq.shape[0] * xq.shape[1])
-        with draws_from(torch_generator(dev, *key)), draw_rows(*rows), \
-                (frozen_bn() if freeze_bn else contextlib.nullcontext()):
-            logits = head(xs, xq)
-        logits = logits.reshape(-1, way).float()
-        loss = F.cross_entropy(logits, labels)
-        state.optimizer.zero_grad()
-        loss.backward()
-        sync_tensors([p.grad for p in head.parameters()])
-        state.optimizer.step()
-        state.step += 1
+        with trace.span("train.student"):
+            head.train()
+            # the head encodes cat(shots, queries): each segment is this rank's block
+            rows = shard_rows(xs.shape[0] * xs.shape[1] * xs.shape[2],
+                              xq.shape[0] * xq.shape[1])
+            with draws_from(torch_generator(dev, *key)), draw_rows(*rows), \
+                    (frozen_bn() if freeze_bn else contextlib.nullcontext()):
+                logits = head(xs, xq)
+            logits = logits.reshape(-1, way).float()
+            loss = F.cross_entropy(logits, labels)
+        _backward_and_update(state, loss, remat=False)
         return mean_metrics({"loss": loss.detach(),
                              "acc": compute_acc(logits.detach(), labels)})
 

@@ -112,7 +112,13 @@ def test_pretrain_cli_writes_the_epoch_2_trace(tmp_path):
     pretrain.main(*runner.parse_args("t", [
         "--config", str(cfg), "--save-root", str(tmp_path / "save"), "--name", "pre",
         "--device", "cpu", "--profile-dir", str(prof)]))
-    assert sorted(os.listdir(prof)) == ["epoch2.trace.json"]
+    assert sorted(os.listdir(prof)) == ["epoch2.spans.json", "epoch2.trace.json"]
     events = json.loads((prof / "epoch2.trace.json").read_text())["traceEvents"]
     assert any(ev.get("cat") == "cpu_op" for ev in events)  # the CPU's ops; the card's kernels
     # are checked by chip_smoke.py
+    steps = [ev for ev in events if ev.get("cat") == "user_annotation"
+             and ev.get("name") == "train.step"]
+    spans = json.loads((prof / "epoch2.spans.json").read_text())["spans"]
+    assert steps and len(spans["train.step"]) == len(steps)  # epoch 2's steps alone
+    for name in ("train.augment", "train.student", "train.backward", "train.optimizer"):
+        assert [s["parent"] for s in spans[name]] == ["train.step"] * len(steps)
