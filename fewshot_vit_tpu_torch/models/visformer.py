@@ -8,7 +8,12 @@
   * stage-2/3 blocks are pre-BN attention + 1x1-conv MLP; the qkv channel
     layout is (3, heads, head_dim) with head_dim = round(dim//heads * ratio),
     so heads*head_dim != dim (252 vs 256, 510 vs 512);
-  * forward: NHWC (B, H, W, 3) -> (dense NHWC, pooled).
+  * forward: NHWC (B, H, W, 3) -> (dense NHWC, pooled). An input that is
+    not NHWC-contiguous (an augmentation's resample returns H and W swapped
+    in memory) is copied to NHWC once, counted as ``encoder.relayout``:
+    from a strided input cuDNN would compute every conv in NCHW, and a 1x1
+    over the NHWC view of that memory runs without grad as a batched GEMM
+    of W rows (``torch.matmul``'s path for an input it cannot flatten).
 
 State-dict keys follow the reference torch model (``stem.downsample.1``,
 ``stage2.0.attn.qkv``, ``norm.bn``), the keys the JAX package's
@@ -286,6 +291,9 @@ class Visformer(Foldable, nn.Module):
         # spans: a stage holds the patch embedding that feeds it; stage 3 the
         # final norm and pooling
         with trace.span("encoder"):
+            if not x.is_contiguous():
+                trace.count("encoder.relayout")
+                x = x.contiguous()
             with trace.span("encoder.stem"):
                 x = self.stem(x) if hasattr(self, "stem") else self.patch_embed1(x)
                 x = self.pos_drop(x + self.pos_embed1.permute(0, 2, 3, 1))

@@ -18,7 +18,7 @@ from fewshot_vit_tpu_torch.kernels import sinkhorn as tks
 from fewshot_vit_tpu_torch.models.visformer import Visformer
 from fewshot_vit_tpu_torch.ops.emd import normalize_weights
 
-from .torch_port_helpers import SMALL_VISFORMER, cuda_device  # noqa: F401  (fixture)
+from .torch_port_helpers import SMALL_VISFORMER, cuda_device, strided_layer_inputs  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -337,6 +337,35 @@ def test_augmentation_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
     strong, weak = ta.make_dual_view_fn(out_size=24)(u8, g)
     assert strong.shape == weak.shape == (8, 24, 24, 3) and strong.is_cuda
     assert torch.isfinite(strong).all() and torch.isfinite(weak).all()
+
+
+def test_teacher_reads_nhwc_contiguous_inputs_from_the_weak_view(cuda_device):  # noqa: F811
+    """The SUN teacher over the dual view's weak view (the crop's resample
+    leaves H and W swapped in memory): one relayout at the encoder's entry,
+    and from there cuDNN keeps every activation NHWC, so no layer of the
+    teacher reads a strided input (a 1x1 is one GEMM, not a batched one of
+    W rows)."""
+    from fewshot_vit_tpu_torch.core import trace
+    from fewshot_vit_tpu_torch.core.registry import models
+    from fewshot_vit_tpu_torch.data.augment import RA_OPS, make_dual_view_fn
+    from fewshot_vit_tpu_torch.heads.token_label import TokenLabel
+    from fewshot_vit_tpu_torch.train.steps import sun_targets
+
+    encoder = models.make("visformer_micro_80", device=cuda_device)
+    teacher = TokenLabel(encoder, 64).to(cuda_device).requires_grad_(False)
+    u8 = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (64, 84, 84, 3))
+                          .astype(np.uint8)).to(cuda_device)
+    # RandAugment's layers pinned to ops that keep the crop's layout (a
+    # Rotate would hand back a contiguous view)
+    layers = [{"op": RA_OPS.index("Equalize")}, {"op": RA_OPS.index("Invert")}]
+    _, weak = make_dual_view_fn()(u8, torch.Generator(device=cuda_device).manual_seed(0),
+                                  draws={"weak": {"layers": layers}})
+    assert not weak.is_contiguous()
+    before = trace.counters().get("encoder.relayout", 0)
+    soft, strided = strided_layer_inputs(teacher, lambda: sun_targets(teacher, weak))
+    assert strided == []
+    assert trace.counters().get("encoder.relayout", 0) - before == 1
+    assert torch.equal(soft, sun_targets(teacher, weak.contiguous()))
 
 
 @pytest.mark.parametrize("teacher_dtype,route", [(torch.float32, "general"),

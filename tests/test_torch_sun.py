@@ -1,7 +1,8 @@
 """Port parity, phase 2 (SUN): a 3-step trajectory of the SUN step against the
 JAX package's (fp32 teacher), the teacher assembled from a phase-1
-checkpoint, the teacher's fused attention inside a training step, and the
-CLI on ``--device cpu`` loading the pretrain CLI's ``max-va``.
+checkpoint, the teacher's fused attention inside a training step, the
+teacher's one relayout of the dual view's weak view, and the CLI on
+``--device cpu`` loading the pretrain CLI's ``max-va``.
 
 The trajectory: a narrow Visformer at img 80 (stage 2 has T = 100 tokens, so
 the teacher's attention meets the fused kernel's dispatch rule; on the CPU
@@ -29,6 +30,8 @@ from fewshot_vit_tpu.train.state import TrainState as JTrainState
 from fewshot_vit_tpu.train.sun import assemble_teacher_variables as j_assemble
 from fewshot_vit_tpu_torch.checkpoint import from_flax, load_flax
 from fewshot_vit_tpu_torch.core import rng as t_rng
+from fewshot_vit_tpu_torch.core import trace
+from fewshot_vit_tpu_torch.data.augment import make_dual_view_fn
 from fewshot_vit_tpu_torch.data.datasets import synthetic
 from fewshot_vit_tpu_torch.heads.classifier import make_classifier
 from fewshot_vit_tpu_torch.heads.token_label import TokenLabel
@@ -124,6 +127,32 @@ def test_teacher_attention_goes_through_the_kernel_wrapper(setup, monkeypatch):
     heads, hd = SMALL_VISFORMER["num_heads"], SMALL_VISFORMER["embed_dim"] // 6
     assert calls == [((BATCH, heads, 100, hd), False)] * len(teacher.encoder.stage2)
     assert student.training and not teacher.training
+
+
+def test_dual_view_step_relayouts_the_weak_view_once_in_the_teacher(setup):
+    """The dual view's weak view (the teacher's input) comes out of the crop's
+    resample with H and W swapped in memory (unless a RandAugment layer
+    rewrites it, as Rotate does; not at this key): the teacher's encoder
+    copies it to NHWC once; the strong view is contiguous, so the student
+    copies nothing."""
+    ds, _, sv, tv, idx = setup
+    student = _token_label(sv)
+    teacher = _token_label(tv).requires_grad_(False)
+    state = TrainState(student, make_optimizer(student.parameters(), "sgd", lr=LR))
+    step = make_sun_step(dual_view_fn=make_dual_view_fn(ds.mean, ds.std, out_size=80), **SUN_KW)
+    imgs = torch.from_numpy(ds.images[idx[0]])
+    trace.reset()
+    trace.enable()
+    try:
+        step(state, teacher, imgs, imgs, torch.from_numpy(ds.labels[idx[0]]), (5, 1, 0))
+    finally:
+        trace.disable()
+        snap = trace.reset()
+    spans = snap["spans"]
+    assert len(spans["train.teacher"]) == len(spans["train.student"]) == 1
+    assert spans["train.teacher"][0]["counts"].get("encoder.relayout") == 1
+    assert spans["train.student"][0]["counts"].get("encoder.relayout", 0) == 0
+    assert snap["counters"]["encoder.relayout"] == 1
 
 
 def test_assemble_teacher_from_a_classifier_checkpoint():

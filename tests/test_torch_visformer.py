@@ -1,6 +1,7 @@
 """Port parity, encoder: a narrow Visformer whose JAX-initialized weights are
 carried across with ``from_flax``; unfolded and folded forwards, the fold
-itself, and the fused-attention flag."""
+itself, the fused-attention flag, and the memory order the encoder computes
+in."""
 
 import jax
 import jax.numpy as jnp
@@ -11,11 +12,14 @@ import torch
 from fewshot_vit_tpu.models.fold import fold_visformer as j_fold
 from fewshot_vit_tpu.models.visformer import Visformer as JVisformer
 from fewshot_vit_tpu_torch.checkpoint import from_flax, load_flax
+from fewshot_vit_tpu_torch.core import trace
+from fewshot_vit_tpu_torch.core.registry import models
+from fewshot_vit_tpu_torch.data.augment import make_dual_view_fn
 from fewshot_vit_tpu_torch.kernels import attention as tk
 from fewshot_vit_tpu_torch.models.fold import fold_visformer as t_fold
 from fewshot_vit_tpu_torch.models.visformer import Visformer as TVisformer
 
-from .torch_port_helpers import SMALL_VISFORMER, numpy_tree, randomize_bn
+from .torch_port_helpers import SMALL_VISFORMER, numpy_tree, randomize_bn, strided_layer_inputs
 
 torch.set_num_threads(1)
 TOL = 1e-4  # fp32 convs and GEMMs summed in another order by XLA:CPU and torch
@@ -102,3 +106,32 @@ def test_training_mode_raises():
     model = TVisformer(**SMALL_VISFORMER, device="cpu").train()
     dense, pooled = model(torch.zeros(2, 80, 80, 3))
     assert dense.shape == (2, 5, 5, 192) and pooled.requires_grad
+
+
+def _weak_view():
+    images = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 84, 84, 3),
+                                                                 dtype=np.uint8))
+    return make_dual_view_fn()(images, torch.Generator().manual_seed(2))[1]
+
+
+@pytest.mark.parametrize("make_input,relayouts", [
+    (_weak_view, 1),  # resample_boxes' einsum leaves H and W swapped in memory
+    (lambda: torch.randn(2, 3, 80, 80, generator=torch.Generator().manual_seed(3))
+     .permute(0, 2, 3, 1), 1),  # an NHWC view of NCHW memory
+    (lambda: torch.randn(2, 80, 80, 3, generator=torch.Generator().manual_seed(3)), 0),
+], ids=["dual_view_weak", "nchw_memory", "contiguous"])
+def test_encoder_computes_on_nhwc_contiguous_activations(make_input, relayouts):
+    """Whatever the input's strides, every layer of the encoder reads an
+    NHWC-contiguous input (a strided one is copied once at the entry), so
+    each 1x1 is one GEMM; the output is that of the contiguous input, bit
+    for bit."""
+    encoder = models.make("visformer_micro_80", device="cpu")
+    x = make_input()
+    before = trace.counters().get("encoder.relayout", 0)
+    with torch.no_grad():
+        (dense, pooled), strided = strided_layer_inputs(encoder, lambda: encoder(x))
+        counted = trace.counters().get("encoder.relayout", 0) - before
+        want_dense, want_pooled = encoder(x.contiguous())
+    assert strided == []
+    assert counted == relayouts
+    assert torch.equal(dense, want_dense) and torch.equal(pooled, want_pooled)

@@ -53,6 +53,22 @@ def randomize_bn(variables, seed=3):
     return {col: walk(tree, ()) for col, tree in variables.items()}
 
 
+def strided_layer_inputs(module, run):
+    """``run()`` -> (its result, the names of the ``Conv`` / ``Linear``
+    layers inside ``module`` whose input was not NHWC-contiguous)."""
+    from fewshot_vit_tpu_torch.models.common import Conv, Linear
+
+    strided = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args, name=name: None if args[0].is_contiguous() else strided.append(name))
+        for name, m in module.named_modules() if isinstance(m, (Conv, Linear))]
+    try:
+        return run(), strided
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip: decided when the test runs, never at import."""
