@@ -12,6 +12,13 @@
     (padding counted, as flax's ``avg_pool``);
   * LayerNorm eps 1e-5; forward: NHWC (B, H, W, 3) -> (dense NHWC, pooled).
 
+Spans (``core/trace.py``): ``encoder`` > ``encoder.stem`` (patch embed and
+its norm), ``encoder.stage1`` .. ``encoder.stage<n>`` (a stage holds the
+PatchMerging that feeds it; the last one the final norm and pooling), and in
+every block ``encoder.window_attn`` (roll, partition, attention, reverse,
+roll back). Counter ``encoder.windows``: windows attended, one per window of
+every image in every block.
+
 State-dict keys are the reference's (``layers.0.blocks.1.attn.qkv``,
 ``layers.0.downsample.reduction``, ``patch_embed.proj``), the keys
 ``checkpoint/from_flax.py::swin_key`` gives. The relative position index and
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
 from .common import (
@@ -169,11 +177,13 @@ class SwinBlock(nn.Module):
         b, l, c = x.shape
         r, ws, s = self.resolution, self.window, self.shift
         y = self.norm1(x).reshape(b, r, r, c)
-        if s > 0:
-            y = torch.roll(y, (-s, -s), dims=(1, 2))
-        y = window_reverse(self.attn(window_partition(y, ws), self.attn_mask, r, s), ws, r, r)
-        if s > 0:
-            y = torch.roll(y, (s, s), dims=(1, 2))
+        with trace.span("encoder.window_attn"):
+            trace.count("encoder.windows", b * (r // ws) ** 2)
+            if s > 0:
+                y = torch.roll(y, (-s, -s), dims=(1, 2))
+            y = window_reverse(self.attn(window_partition(y, ws), self.attn_mask, r, s), ws, r, r)
+            if s > 0:
+                y = torch.roll(y, (s, s), dims=(1, 2))
         x = x + self.drop_path(y.reshape(b, l, c))
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
@@ -289,24 +299,32 @@ class SwinTransformer(nn.Module):
             raise ValueError(f"this Swin is built for {self.img_size}x{self.img_size} inputs, "
                              f"got {tuple(x.shape[1:3])}")
         b = x.shape[0]
-        x = self.patch_embed(x)
-        if x.dim() == 4:  # the conv stem's map
-            x = x.reshape(b, -1, x.shape[-1])
-        if hasattr(self, "absolute_pos_embed"):
-            x = x + self.absolute_pos_embed
-        x = self.pos_drop(x)
-        for stage in self.layers:
-            for blk in stage.blocks:
-                x = blk(x)
-            if stage.downsample is not None:
-                x = stage.downsample(x)
-        x = self.norm(x)
-        return x.reshape(b, self.res, self.res, -1), x.mean(dim=1)
+        with trace.span("encoder"):
+            with trace.span("encoder.stem"):
+                x = self.patch_embed(x)
+                if x.dim() == 4:  # the conv stem's map
+                    x = x.reshape(b, -1, x.shape[-1])
+                if hasattr(self, "absolute_pos_embed"):
+                    x = x + self.absolute_pos_embed
+                x = self.pos_drop(x)
+            for i, stage in enumerate(self.layers, start=1):
+                with trace.span(f"encoder.stage{i}"):
+                    if i > 1:
+                        x = self.layers[i - 2].downsample(x)
+                    for blk in stage.blocks:
+                        x = blk(x)
+                    if stage.downsample is None:  # the last stage: final norm and pooling
+                        x = self.norm(x)
+                        return x.reshape(b, self.res, self.res, -1), x.mean(dim=1)
 
 
 _MICRO = dict(img_size=80, patch_size=4, window_size=5, embed_dim=144, depths=(2, 3, 2),
               num_heads=(4, 8, 16), drop_path_rate=0.5, conv_stem=True)
 _VARIANTS = {
+    # Liu et al., ICCV 2021: configs/swin/swin_tiny_patch4_window7_224.yaml
+    "swin_tiny_patch4_window7_224": dict(img_size=224, patch_size=4, window_size=7, embed_dim=96,
+                                         depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
+                                         drop_path_rate=0.2),
     # built for 96 px despite its name: on 80 px the JAX package fails too
     "swin_nano_patch4_window5_80": dict(img_size=96, patch_size=4, window_size=6, embed_dim=64,
                                         depths=(1, 1, 1, 2), num_heads=(2, 4, 8, 16)),
