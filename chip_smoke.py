@@ -106,8 +106,11 @@ Phases, in order; any failure exits non-zero:
  20. every other registered encoder at full width, one batch of 640 images
      at its own input size in fp32 and bf16: finite, the JAX package's
      shapes, fp32 ms per batch; a reference-format ``.pth`` round trip per
-     family. No zoo path launches either kernel, as no zoo encoder reaches
-     a Pallas kernel in the JAX package;
+     family. No zoo path launches the MHSA or the Sinkhorn kernel, as no
+     zoo encoder reaches a Pallas kernel in the JAX package; the bf16
+     ``swin_nano_patch4_window5_80`` forward (hd 32, no autograd) launches
+     the window-attention kernel once a block, 5, and every other forward
+     none, counted;
  21. (after phase 16) ``solver: exact``: the ``eval.run_emd`` CLI from a
      DeepEMD checkpoint this phase writes, the geometry of
      ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 104
@@ -237,7 +240,14 @@ Phases, in order; any failure exits non-zero:
      MHSA launches a batch, and the fp32 accuracy rule; then the kernel
      timed at (3000, 38, 38), (375, 38, 38), (3000, 64, 64) and (3000, 196,
      196) beside its plain version and its bound;
- 39. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
+ 39. (right after phase 38) Swin's window attention (``window_attention``,
+     no TPU kernel behind it) at Swin-T's four stages for the Swin cell's
+     2,560-image batch, shifted and not: the bare launch into a NaN-filled
+     output and the op, each held to the plain version (computed 320 images
+     at a time) within 1e-2 + 2^-6 |want| (two bf16 ulps), every launch
+     counted; then the bare launch timed beside its bytes-or-flops bound
+     and the plain version;
+ 40. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
      ``slice10``, ``slice11`` and kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
@@ -381,6 +391,13 @@ SMALL224_EXACT = 4          # batches of the float64-attention path
 PYRAMID_EPISODES = 32       # SUN-D fcn + feature_pyramid [2, 3], 8 a batch
 SMALL224_EMD_EPISODES = 32  # SUN-D fcn over visformer_small at 224 px, 8 a batch
 VIS_DATA = {"n_classes": 4, "n_per_class": 8, "image_size": 80, "seed": 9}
+# phase 20: window-kernel launches of a bf16 forward without autograd (one a
+# block of hd 32); every other zoo forward launches none
+ZOO_WINDOW_LAUNCHES = {"swin_nano_patch4_window5_80": 5}
+# phase 39: the window attention at Swin-T's stages, the Swin cell's batch
+WINDOW_BATCH = 2560
+WINDOW_CHECK_IMAGES = 320   # the plain version's images a call in the check
+WINDOW_ATOL, WINDOW_RTOL = 1e-2, 2.0 ** -6
 
 
 def _fail(msg: str) -> None:
@@ -966,6 +983,69 @@ def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
             "ms": head_row["ms"], "plain_ms": head_row["plain_ms"],
             "bound_ms": head_row["bound_ms"], "bound_by": head_row["bound_by"],
             "library_ms": None, "rows": rows, **out}
+
+
+def _window_attention(dev, tag, gen):
+    """Phase 39. Returns the ``window_attention`` entry of the kernels' JSON line."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels import window as wa
+    from fewshot_vit_tpu_torch.kernels.bench import WINDOW_STAGES, window_bound_ms
+
+    bf16, ws = torch.bfloat16, 7
+    b, k = WINDOW_BATCH, WINDOW_CHECK_IMAGES
+    wa.window_attention.launches = 0
+    rows, launched, warm, reps = [], 0, 3, 20
+    for res, c, heads, shift in WINDOW_STAGES:
+        table = torch.randn((2 * ws - 1) ** 2, heads, generator=gen, device=dev)
+        scale = (c // heads) ** -0.5
+        qkv = torch.randn(b, res, res, 3 * c, generator=gen, device=dev).to(bf16)
+        row = {"shape": [b, res, res, 3 * c], "heads": heads, "shift": shift, "max_abs_err": {}}
+        for s in sorted({0, shift}):
+            bare = torch.full((b, res, res, c), float("nan"), dtype=bf16, device=dev)
+            wa._launch(qkv, table, bare, heads, ws, s, scale)
+            op = wa.window_attention(qkv, table, heads, ws, s, scale)
+            launched += 2
+            err, over = 0.0, 0.0
+            for i in range(0, b, k):
+                want = wa.window_attention_reference(qkv[i:i + k], table, heads, ws, s,
+                                                     scale).float()
+                for got in (bare, op):
+                    d = (got[i:i + k].float() - want).abs().nan_to_num(float("inf"))
+                    err = max(err, d.max().item())
+                    over = max(over, (d - WINDOW_RTOL * want.abs()).max().item())
+                del want
+            print(f"window_attention {tag} ({b},{res},{res},{3 * c}) heads {heads} shift {s}: "
+                  f"bare launch and op against the plain version, max|d|={err:.3e}, "
+                  f"max(|d| - 2^-6 |want|)={over:.3e} (limit {WINDOW_ATOL})")
+            if over > WINDOW_ATOL:
+                _fail(f"window_attention ({b},{res},{res},{3 * c}) shift {s}: the kernel is off "
+                      f"its plain version by {over:.3e} beyond 2^-6 |want|")
+            row["max_abs_err"][str(s)] = err
+            del bare, op
+        if wa.window_attention.launches != launched:
+            _fail(f"window_attention: expected {launched} launches, counted "
+                  f"{wa.window_attention.launches}")
+        out = torch.empty(b, res, res, c, dtype=bf16, device=dev)
+        ms = _time_ms(lambda: wa._launch(qkv, table, out, heads, ws, shift, scale), reps, warm)
+        launched += warm + reps
+        plain_ms = _time_ms(lambda: wa.window_attention_reference(qkv, table, heads, ws, shift,
+                                                                  scale), reps=2, warm=1)
+        bound_ms = window_bound_ms(b, res, c, heads, ws)
+        print(f"timing {tag}: window_attention ({b},{res},{res},{3 * c}) heads {heads} shift "
+              f"{shift}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms; "
+              f"kernel/bound {ms / bound_ms:.2f}")
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        rows.append(row)
+        del qkv, out, table
+        torch.cuda.empty_cache()
+    head = rows[0]
+    return {"name": "window_attention", "kernel": "window_attn_kernel", "route": "cuda",
+            "source": "fewshot_vit_tpu_torch/csrc/window_attn.cu", "replaces": None,
+            "launches": launched, "launches_path": "phase 39, Swin-T's stages",
+            "max_abs_err": max(e for r in rows for e in r["max_abs_err"].values()),
+            "shape": head["shape"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "rows": rows}
 
 
 def _state_copy(module):
@@ -2347,6 +2427,7 @@ def _zoo_forward(dev, tag, tmp):
     from fewshot_vit_tpu_torch.core.registry import models
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
     from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
+    from fewshot_vit_tpu_torch.kernels.window import window_attention
     from fewshot_vit_tpu_torch.train.runner import load_encoder_from_checkpoint
 
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -2358,12 +2439,20 @@ def _zoo_forward(dev, tag, tmp):
             dn = str(dtype).split(".")[1]
             enc = models.make(name, dtype=dtype, device=dev, seed=0)
             _zero_counts(fused_mhsa, sinkhorn_pallas)
+            window_attention.launches = 0
             with torch.inference_mode():
                 dense, pooled = enc(x)
+                windows = window_attention.launches
                 if dtype == torch.float32:
                     e["fp32_ms"] = _time_ms(lambda: enc(x), reps=2, warm=1)
-            counts[f"zoo_forward_{name}_{dn}"] = _expect_counts(f"zoo forward {name}", "general",
-                                                                0)
+            want = ZOO_WINDOW_LAUNCHES.get(name, 0) if dtype == torch.bfloat16 else 0
+            if windows != want:
+                _fail(f"zoo forward {name} {dn}: expected {want} window-attention launches, "
+                      f"counted {windows}")
+            e[f"window_launches_{dn}"] = windows
+            counts[f"zoo_forward_{name}_{dn}"] = {
+                **_expect_counts(f"zoo forward {name}", "general", 0),
+                "window_attention": windows}
             if (tuple(dense.shape) != (ZOO_BATCH, *dense_shape)
                     or tuple(pooled.shape) != (ZOO_BATCH, width)):
                 _fail(f"zoo forward {name} {dn}: shapes {tuple(dense.shape)} "
@@ -2373,7 +2462,9 @@ def _zoo_forward(dev, tag, tmp):
             del enc, dense, pooled
         print(f"zoo forward {tag} {name}: {ZOO_BATCH} images at {size}x{size}, fp32 and bf16 "
               f"finite, dense {dense_shape}, pooled {width} as the JAX package's; fp32 "
-              f"{e['fp32_ms']:.2f} ms a batch; kernel launches 0")
+              f"{e['fp32_ms']:.2f} ms a batch; MHSA and Sinkhorn launches 0, window-attention "
+              f"launches {e['window_launches_float32']} fp32, {e['window_launches_bfloat16']} "
+              f"bf16")
         del x
         torch.cuda.empty_cache()
     for name in ZOO_PTH:
@@ -4501,6 +4592,9 @@ def main() -> int:
     # phase 38: the Sinkhorn's general route on its own paths
     kernels.append(_sinkhorn_general_paths(dev, ds, images_dev, tag, gen, sinkhorn_errs))
     lap("38 (the general Sinkhorn route)")
+    # phase 39: Swin's window attention at Swin-T's stages
+    kernels.append(_window_attention(dev, tag, gen))
+    lap("39 (the window attention)")
 
     # phases 8-10: the two trainers
     val_ds = datasets.make("synthetic", n_classes=20, n_per_class=40, image_size=80, seed=3)
@@ -4600,13 +4694,18 @@ def main() -> int:
         # phases 32-36: the bench entry, the two gates, the graft entry points, the model axis
         slice11, slice11_launches = _slice11(dev, tmp, tag)
     for entry in kernels:
+        if entry["name"] == "window_attention":  # counted only where a Swin reaches it
+            entry["zoo_launches"] = {path: c["window_attention"]
+                                     for path, c in zoo_launches.items() if "window_attention" in c}
+            continue
+
         def count(c, entry=entry):  # an entry counts its own kernel's (route's) launches
             n = c[entry["name"]]
             return n if isinstance(n, int) else n[entry["kernel_route"]]
 
         entry["train_launches"] = {path: count(c) for path, c in train_launches.items()}
         entry["eval_cli_launches"] = {path: count(c) for path, c in eval_launches.items()}
-        # the encoder zoo reaches no kernel, in either package
+        # the encoder zoo reaches neither kernel, in either package
         entry["zoo_launches"] = {path: count(c) for path, c in zoo_launches.items()}
         entry["slice8_launches"] = {path: count(c) for path, c in slice8_launches.items()}
         entry["slice9_launches"] = {path: count(c) for path, c in slice9_launches.items()}

@@ -3,10 +3,11 @@ as ``torch.export`` programs.
 
 The eval forward is traced once into an ``ExportedProgram`` with the
 weights baked in and uint8 normalization included; a serving process loads
-the ``.pt2`` file and calls it with no model code. The two hand-written
-kernels are the ops ``fewshot_vit_tpu_torch::fused_mhsa`` and
-``::sinkhorn_pallas`` (``kernels/``): the program calls them by name, so the
-serving process imports ``fewshot_vit_tpu_torch.kernels`` to register them
+the ``.pt2`` file and calls it with no model code. The hand-written
+kernels are the ops ``fewshot_vit_tpu_torch::fused_mhsa``,
+``::sinkhorn_pallas`` and ``::window_attention`` (``kernels/``): the program
+calls them by name, so the serving process imports
+``fewshot_vit_tpu_torch.kernels`` to register them
 (``load_exported`` does), and each op picks its implementation from the
 tensors' device when the program runs: the CUDA kernel on the card, the
 plain version on the CPU. Without the registrations loading raises.

@@ -1,7 +1,7 @@
 """Check and time the hand-written kernels alone on one card, route against route.
 
-    python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--ptxas] [--sinkhorn-only]
-        [--against OTHER/sinkhorn.cu ...]
+    python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--ptxas]
+        [--only sinkhorn|window] [--against OTHER/sinkhorn.cu ...]
 
 Builds ``csrc/*.cu``, prints what ``ptxas -v`` says of every kernel (registers,
 spills, shared memory), holds each route of ``fused_mhsa`` and
@@ -15,7 +15,12 @@ route is checked and timed at its callers' shapes (``SINKHORN_GENERAL``)
 beside its plain version; ``--against`` builds another
 ``sinkhorn.cu`` with the same C interface (an earlier tree's, a variant) into
 a library of its own and times its general route in turns with this one's,
-bare launches both, at the shapes it takes.
+bare launches both, at the shapes it takes. Swin's window attention
+(``window_attention``) is checked against its plain version at every Swin-T
+stage, shifted and not, and timed at those stages for a 2,560-image batch
+(``WINDOW_STAGES``): the bare launch beside its bytes-or-flops bound, and a
+block's whole span (qkv, attention, proj) on the kernel and on the einsum
+path. ``--only`` builds, checks and times one kernel alone.
 ``chip_smoke.py`` makes the same measurements inside its full run; this is the
 short loop for working on a kernel. Every line names the card and its power
 limit.
@@ -33,6 +38,7 @@ from . import build
 from . import attention, sinkhorn
 from .attention import fused_mhsa, fused_mhsa_reference
 from .sinkhorn import sinkhorn_pallas, sinkhorn_reference
+from . import window as wa
 
 F32, BF16 = torch.float32, torch.bfloat16
 TOL = {F32: 1e-4, BF16: 2e-2}
@@ -50,6 +56,11 @@ MHSA_TIMED = ((10240, 6, 100, 42, (BF16, F32)), (512, 6, 100, 42, (F32, BF16)),
 SINKHORN_GENERAL = ((3000, 38, 38), (375, 38, 38), (3000, 64, 64), (3000, 196, 196),
                     (7, 38, 25), (5, 209, 150), (4, sinkhorn.MAX_NODES, sinkhorn.MAX_NODES))
 SINKHORN_TIMED_GENERAL = 4  # the first four are timed
+# Swin-T's stages at 224 px, window 7: (grid, channels, heads, shift of the
+# odd blocks); the last stage is one window, unshifted. Timed at the Swin
+# cell's batch of 2,560 images, checked at WINDOW_CHECK_BATCH.
+WINDOW_STAGES = ((56, 96, 3, 3), (28, 192, 6, 3), (14, 384, 12, 3), (7, 768, 24, 0))
+WINDOW_BATCH, WINDOW_CHECK_BATCH = 2560, 8
 MHSA_EDGES = ((64, 4, 512, 128), (4, 2, 129, 64), (4, 2, 128, 128), (32, 6, 25, 85),
               (2, 3, 33, 97), (3, 1, 1, 1), (8, 4, 64, 48))
 
@@ -149,6 +160,71 @@ def _sinkhorn_general(card, gen, dev, reps, others):
     return ok
 
 
+def window_bound_ms(b: int, res: int, c: int, heads: int, window: int = 7) -> float:
+    """Least ms of one launch: its qkv read and its output written once (bf16)
+    at 3.35 TB/s, or 4 n^2 hd flops a (window, head) at 989 TFLOP/s."""
+    n = window * window
+    bytes_ = b * res * res * 4 * c * 2 + (2 * window - 1) ** 2 * heads * 4
+    flops = b * (res // window) ** 2 * heads * 4 * n * n * (c // heads)
+    return max(bytes_ / 3.35e12, flops / 989e12) * 1e3
+
+
+def _window(card, gen, dev, reps) -> bool:
+    """The window kernel against its plain version at every Swin-T stage,
+    shifted and not (the bare launch into a NaN-filled output, and the op),
+    then, at a 2,560-image batch, the bare launch timed beside its bound and
+    the plain version, and a block's span (qkv, attention, proj) on the
+    kernel and on the einsum path, in turns."""
+    from ..models.common import init_weights
+    from ..models.swin import SwinBlock
+
+    ok = True
+    for res, c, heads, shift in WINDOW_STAGES:
+        blk = SwinBlock(c, res, heads, 7, shift, dtype=BF16)
+        init_weights(blk, torch.Generator().manual_seed(res))
+        blk = blk.to(dev).eval()
+        with torch.no_grad():
+            blk.attn.relative_position_bias_table.normal_(generator=gen)
+        table = blk.attn.relative_position_bias_table.detach()
+        scale = (c // heads) ** -0.5
+        for s in sorted({0, shift}):
+            qkv = torch.randn(WINDOW_CHECK_BATCH, res, res, 3 * c, generator=gen,
+                              device=dev).to(BF16)
+            want = wa.window_attention_reference(qkv, table, heads, 7, s, scale).float()
+            out = torch.full((WINDOW_CHECK_BATCH, res, res, c), float("nan"), dtype=BF16,
+                             device=dev)
+            wa._launch(qkv, table, out, heads, 7, s, scale)
+            got = wa.window_attention(qkv, table, heads, 7, s, scale)
+            torch.cuda.synchronize()
+            err = max((o.float() - want).abs().max().nan_to_num(float("inf")).item()
+                      for o in (out, got))
+            good = err <= TOL[BF16]
+            ok &= good
+            print(f"[{card}] window_attention ({WINDOW_CHECK_BATCH},{res},{res},{3 * c}) heads "
+                  f"{heads} shift {s}: max|d|={err:.3e}{'' if good else '  FAIL'}")
+            del qkv, want, out, got
+        b = WINDOW_BATCH
+        qkv = torch.randn(b, res, res, 3 * c, generator=gen, device=dev).to(BF16)
+        out = torch.empty(b, res, res, c, dtype=BF16, device=dev)
+        y = torch.randn(b, res, res, c, generator=gen, device=dev).to(BF16)
+        with torch.inference_mode():
+            fns = {"kernel": lambda: wa._launch(qkv, table, out, heads, 7, shift, scale),
+                   "span_kernel": lambda: blk.attn.fused(y, 7, shift),
+                   "span_einsum": lambda: blk.einsum_attention(y)}
+            ms = {name: [] for name in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                ms[name].append(time_ms(fns[name], reps))
+            plain = time_ms(lambda: wa.window_attention_reference(qkv, table, heads, 7, shift,
+                                                                  scale), 2, warm=1)
+        bound = window_bound_ms(b, res, c, heads)
+        kernel = sum(ms["kernel"]) / 2
+        print(f"[{card}] window_attention ({b},{res},{res},{3 * c}) heads {heads} shift {shift} "
+              f"ms: {ms}, bound {bound:.4f} ({100 * bound / kernel:.1f}% of it), "
+              f"plain {plain:.3f}")
+        del qkv, out, y, blk
+    return ok
+
+
 def mhsa_routes(q: torch.Tensor):
     """Every route that takes q: the general route, and the tensor-core
     route where it applies."""
@@ -184,7 +260,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--ptxas", action="store_true", help="print every kernel's ptxas line")
-    p.add_argument("--sinkhorn-only", action="store_true", help="skip the MHSA")
+    p.add_argument("--only", choices=("sinkhorn", "window"), help="one kernel alone")
     p.add_argument("--against", nargs="+", default=(),
                    help="other sinkhorn.cu files whose general route is timed beside this one's")
     args = p.parse_args()
@@ -194,7 +270,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card)
-    logs = build.build(("sinkhorn",) if args.sinkhorn_only else build.SOURCES)
+    logs = build.build({"sinkhorn": ("sinkhorn",), "window": ("window_attn",)}.get(
+        args.only, build.SOURCES))
     for name, log in logs.items():
         lines = build.ptxas_summary(log)
         spills = [x for x in lines if "spill" in x]
@@ -204,12 +281,16 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    ok = _sinkhorn_general(card, gen, dev, args.reps,
+    if args.only == "window":
+        return 0 if _window(card, gen, dev, args.reps) else 1
+    sinkhorn_only = args.only == "sinkhorn"
+    ok = True if sinkhorn_only else _window(card, gen, dev, args.reps)
+    ok &= _sinkhorn_general(card, gen, dev, args.reps,
                            {src: _against(src, str(i)) for i, src in enumerate(args.against)})
-    for b, h, t, hd in () if args.sinkhorn_only else MHSA_EDGES:
+    for b, h, t, hd in () if sinkhorn_only else MHSA_EDGES:
         for dtype in (F32, BF16):
             ok &= _check_mhsa(card, gen, dev, b, h, t, hd, dtype)[-1]
-    for b, h, t, hd, dtypes in () if args.sinkhorn_only else MHSA_TIMED:
+    for b, h, t, hd, dtypes in () if sinkhorn_only else MHSA_TIMED:
         for dtype in dtypes:
             q, k, v, scale, good = _check_mhsa(card, gen, dev, b, h, t, hd, dtype)
             ok &= good

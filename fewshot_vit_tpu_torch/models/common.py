@@ -115,8 +115,10 @@ def capture_attention() -> Iterator[list]:
     """Yields a list that fills, in call order (which is depth order), with
     ``(module, key, tensor)`` for every sow of the forwards run inside:
     ``key`` is ``"attn"`` (post-softmax weights) or ``"attn_map"`` (Swin's
-    image-plane map). Capture changes no dispatch: a block whose attention
-    runs through the fused kernel records nothing, as in JAX."""
+    image-plane map). The MHSA route keeps its kernel under capture: a
+    block whose attention runs through the fused kernel records nothing, as
+    in JAX. Swin's window route (``swin.window_route``) takes the einsum
+    path under capture, so that its probabilities are recorded."""
     found: list = []
     token = _captured.set(found)
     try:

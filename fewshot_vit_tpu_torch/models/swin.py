@@ -15,9 +15,19 @@
 Spans (``core/trace.py``): ``encoder`` > ``encoder.stem`` (patch embed and
 its norm), ``encoder.stage1`` .. ``encoder.stage<n>`` (a stage holds the
 PatchMerging that feeds it; the last one the final norm and pooling), and in
-every block ``encoder.window_attn`` (roll, partition, attention, reverse,
-roll back). Counter ``encoder.windows``: windows attended, one per window of
-every image in every block.
+every block ``encoder.window_attn`` (the qkv projection, the shifted-window
+attention, the proj projection; ``norm1`` stays outside). Counter
+``encoder.windows``: windows attended, one per window of every image in
+every block; ``encoder.windows_fused``: those of them the window kernel
+computed.
+
+Two routes for a block's attention, chosen from what the block observes
+(``window_route``): the hand-written kernel (``kernels/window.py``,
+``csrc/window_attn.cu``) on the un-rolled grid between the qkv and proj
+projections, on CUDA tensors in bf16 without autograd or capture, with
+attention dropout off, for windows and head widths it is compiled for; else
+the einsum path (roll, partition, einsums, bias, mask, softmax, reverse,
+roll back), which also records the probabilities a capture asks for.
 
 State-dict keys are the reference's (``layers.0.blocks.1.attn.qkv``,
 ``layers.0.downsample.reduction``, ``patch_embed.proj``), the keys
@@ -37,6 +47,7 @@ from torch import nn
 from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
+from ..kernels.window import kernel_takes, window_attention
 from .common import (
     Conv,
     DropPath,
@@ -135,6 +146,15 @@ class WindowAttention(nn.Module):
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b_, n, c)
         return self.proj_drop(self.proj(out))
 
+    def fused(self, y: torch.Tensor, window: int, shift: int) -> torch.Tensor:
+        """(B, R, R, C) -> (B, R, R, C): qkv on the un-rolled grid, the window
+        kernel, proj; the same function as roll, partition, ``forward``,
+        reverse and roll back."""
+        hd = y.shape[-1] // self.num_heads
+        out = window_attention(self.qkv(y), self.relative_position_bias_table, self.num_heads,
+                               window, shift, hd ** -0.5)
+        return self.proj_drop(self.proj(out))
+
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> dropout -> fc2 -> dropout (keys ``mlp.fc1`` / ``mlp.fc2``),
@@ -149,6 +169,16 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.drop(self.fc2(self.drop(gelu(self.fc1(x)))))
+
+
+def window_route(device: torch.device, dtype: torch.dtype, tokens: int, head_dim: int,
+                 dropout: bool) -> bool:
+    """True where a block's attention takes the window kernel: CUDA
+    tensors, a dtype and shape the kernel is compiled for, no gradient
+    recorded, no capture (it needs the probabilities), attention dropout
+    off. Everything else takes the einsum path."""
+    return (device.type == "cuda" and kernel_takes(dtype, tokens, head_dim)
+            and not torch.is_grad_enabled() and not capturing() and not dropout)
 
 
 class SwinBlock(nn.Module):
@@ -177,15 +207,28 @@ class SwinBlock(nn.Module):
         b, l, c = x.shape
         r, ws, s = self.resolution, self.window, self.shift
         y = self.norm1(x).reshape(b, r, r, c)
+        drop = self.attn.attn_drop
         with trace.span("encoder.window_attn"):
             trace.count("encoder.windows", b * (r // ws) ** 2)
-            if s > 0:
-                y = torch.roll(y, (-s, -s), dims=(1, 2))
-            y = window_reverse(self.attn(window_partition(y, ws), self.attn_mask, r, s), ws, r, r)
-            if s > 0:
-                y = torch.roll(y, (s, s), dims=(1, 2))
+            if window_route(y.device, y.dtype, ws * ws, c // self.attn.num_heads,
+                            drop.rate > 0 and drop.training):
+                trace.count("encoder.windows_fused", b * (r // ws) ** 2)
+                y = self.attn.fused(y, ws, s)
+            else:
+                y = self.einsum_attention(y)
         x = x + self.drop_path(y.reshape(b, l, c))
         return x + self.drop_path(self.mlp(self.norm2(x)))
+
+    def einsum_attention(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, R, R, C) -> (B, R, R, C): roll, partition, ``WindowAttention``,
+        reverse, roll back."""
+        r, ws, s = self.resolution, self.window, self.shift
+        if s > 0:
+            y = torch.roll(y, (-s, -s), dims=(1, 2))
+        y = window_reverse(self.attn(window_partition(y, ws), self.attn_mask, r, s), ws, r, r)
+        if s > 0:
+            y = torch.roll(y, (s, s), dims=(1, 2))
+        return y
 
 
 class PatchMerging(nn.Module):

@@ -504,3 +504,94 @@ def test_exported_encoder_on_the_card_launches_the_kernel(cuda_device, tmp_path)
         torch.testing.assert_close(got, live, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="not for cpu"):
         export.load_exported(str(tmp_path / "1.pt2"), device="cpu")
+
+
+# Swin-T's stages at 224 px, window 7: (grid, channels, heads, shift of the odd blocks)
+SWIN_T_STAGES = [(56, 96, 3, 3), (28, 192, 6, 3), (14, 384, 12, 3), (7, 768, 24, 0)]
+# swin_nano's stages at 96 px (hd 32, windows 6 and the clamped 3), which a
+# bf16 forward without autograd sends to the kernel: (grid, channels, heads,
+# shift the kernel is checked at, window)
+SWIN_NANO_STAGES = [(24, 64, 2, 3, 6), (12, 128, 4, 3, 6), (6, 256, 8, 0, 6), (3, 512, 16, 0, 3)]
+
+
+@pytest.mark.parametrize("res,c,heads,shift,window", [
+    pytest.param(res, c, heads, s, 7, id=f"{res}-{c}-{heads}-{s}")
+    for res, c, heads, shift in SWIN_T_STAGES for s in sorted({0, shift})] + [
+    pytest.param(res, c, heads, s, ws, id=f"{res}-{c}-{heads}-{s}-window{ws}")
+    for res, c, heads, shift, ws in SWIN_NANO_STAGES for s in sorted({0, shift})])
+def test_window_kernel_matches_the_op_on_the_cpu(cuda_device, res, c, heads, shift,  # noqa: F811
+                                                 window):
+    """The bare launch into a NaN-filled output and the op, against the op's
+    CPU implementation on the same bf16 qkv and a bias table at std 1: an
+    element the kernel does not write, or writes to another place, fails.
+    2e-2: one bf16 ulp of outputs up to ~3, plus the probabilities' bf16
+    rounding, which ex2.approx can move by one ulp."""
+    from fewshot_vit_tpu_torch.kernels import window as tw
+
+    rng = np.random.default_rng(res + shift)
+    qkv = torch.from_numpy(rng.normal(size=(2, res, res, 3 * c)).astype(np.float32)).to(
+        torch.bfloat16)
+    table = torch.from_numpy(rng.normal(size=((2 * window - 1) ** 2, heads)).astype(np.float32))
+    want = tw.window_attention_op(qkv, table, heads, window, shift, 32 ** -0.5).float()
+    q, t = qkv.to(cuda_device), table.to(cuda_device)
+    bare = torch.full((2, res, res, c), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+    before = tw.window_attention.launches
+    tw._launch(q, t, bare, heads, window, shift, 32 ** -0.5)
+    got = tw.window_attention(q, t, heads, window, shift, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert tw.window_attention.launches == before + 2
+    for out in (bare, got):
+        assert out.dtype == torch.bfloat16
+        assert (out.cpu().float() - want).abs().max().nan_to_num(float("inf")).item() <= 2e-2
+
+
+def _swin_t(dtype, device):
+    """Swin-T at 224 px with the Swin cell's weight scales: linear kernels at
+    1 / sqrt(fan_in), bias tables at std 1, so the shift, the mask and the
+    bias each move the features."""
+    from fewshot_vit_tpu_torch.core.registry import models
+
+    enc = models.make("swin_tiny_patch4_window7_224", dtype=dtype, device="cpu", seed=3)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                p.copy_(torch.randn(p.shape, generator=gen))
+            elif p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=gen) / p.shape[1] ** 0.5)
+    return enc.to(device)
+
+
+def test_swin_forward_with_the_window_kernel_matches_the_einsum_path(cuda_device):  # noqa: F811
+    """A bf16 Swin-T forward without autograd launches the window kernel once
+    a block (12); with autograd on it takes the einsum path. The einsum path
+    rounds scores, bias and softmax to bf16 where the kernel keeps fp32, so
+    both bf16 forwards are held against the fp32 forward: the kernel's may be
+    off by at most twice what the einsum path's is, plus 1e-2."""
+    from fewshot_vit_tpu_torch.kernels import window as tw
+
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(4, 224, 224, 3))
+                         .astype(np.float32)).to(cuda_device)
+    enc16, enc32 = _swin_t(torch.bfloat16, cuda_device), _swin_t(torch.float32, cuda_device)
+    before = tw.window_attention.launches
+    with torch.no_grad():
+        fused, ref = enc16(x), enc32(x)
+    torch.cuda.synchronize()
+    assert tw.window_attention.launches == before + 12
+    with torch.enable_grad():
+        einsum = [t.detach() for t in enc16(x)]
+    torch.cuda.synchronize()
+    assert tw.window_attention.launches == before + 12
+    for a, b, r in zip(fused, einsum, ref):
+        off_einsum = (b.float() - r).abs().max().item()
+        assert (a.float() - r).abs().max().item() <= 2 * off_einsum + 1e-2
+
+
+def test_window_op_on_the_card(cuda_device):  # noqa: F811
+    from fewshot_vit_tpu_torch.kernels import window as tw
+
+    qkv = torch.randn(2, 14, 14, 3 * 192, device=cuda_device).to(torch.bfloat16)
+    table = torch.randn(13 * 13, 6, device=cuda_device)
+    torch.library.opcheck(tw.window_attention_op, (qkv, table, 6, 7, 3, 32 ** -0.5))
+    with pytest.raises(ValueError):  # fp32 is the einsum path's
+        tw.window_attention(qkv.float(), table, 6, 7, 3, 32 ** -0.5)
