@@ -32,14 +32,9 @@ Phases, in order; any failure exits non-zero:
      tensor-core route per episode batch), then fp32 with
      the kernel against ``sinkhorn_detached`` on the same episodes; 1-shot
      fcn (N = 25); one batch of 5-shot grid with SFC (20 steps);
-  7. time both paths (episodes/s in turns: the default routes, the old
-     routes forced, the kernel's alternative) and each kernel in turns (old
-     route, new route), its plain version and, for MHSA,
-     ``scaled_dot_product_attention`` (a yardstick only) beside the bound:
-     every MHSA route that takes the shape (general, tensor core) at the
-     SUN-M, SUN teacher, eval CLI and visformer_small stage-3 shapes, fp32
-     against the 3xTF32 tensor-core bound with the CUDA-core one beside it;
-     then phase 37;
+  7. (no phase: the kernels' times and speed gates are
+     ``python -m fewshot_vit_tpu_torch.kernels.bench``'s, the paths' rates
+     the benchmark's, ``benchmark/run.py``) phase 37 runs after phase 5;
   8. SUN-D meta-tuning (``train.meta_tune_emd``'s own functions): the
      geometry of ``configs/sund_mini_visformer_1shot.yaml`` (grid, 5-way
      1-shot 15-query, ``bs`` 2, fp32) with ``solver: sinkhorn_pallas``, 4
@@ -54,8 +49,8 @@ Phases, in order; any failure exits non-zero:
      8 episodes a step, drop-path 0.5), 10 steps in bf16 and 4 in fp32, one
      ``evaluate`` pass after each, ``freeze_bn`` both ways, and two seeded
      runs whose losses must be bit-identical;
- 10. time both trainers in turns; run both trainer CLIs for two epochs on a
-     small synthetic config in a temporary directory, then resume them;
+ 10. run both trainer CLIs for two epochs on a small synthetic config in a
+     temporary directory, then resume them;
  11. phase-1 pretraining (``train.loop.make_pretrain_epoch``): the geometry
      of ``configs/pretrain_mini_visformer.yaml`` (a synthetic split at
      miniImageNet train geometry, 64 classes x 600 at 84x84, ``protocol:
@@ -94,8 +89,8 @@ Phases, in order; any failure exits non-zero:
      warmup): ``nest_micro_v2_gpsa``, ``swin_micro_resembed_80``,
      ``levit_micro_80`` (drop-path 0.5) and ``lvvit_micro_80`` at full
      width, 3 steps in fp32 and 3 in bf16 each: finite losses, every
-     parameter and BN statistic moved, no kernel launched; steps/s and peak
-     memory; a checkpoint per family;
+     parameter and BN statistic moved, no kernel launched; peak memory; a
+     checkpoint per family;
  18. ``eval.run`` over each of them, ``load_encoder:`` on its checkpoint, 400
      episodes bf16, accuracies equal to in-process ``evaluate``; LeViT's
      ``--fold-bn`` against unfolded in fp32 on the same episodes;
@@ -105,9 +100,9 @@ Phases, in order; any failure exits non-zero:
      steps: BN statistics unchanged, parameters moved;
  20. every other registered encoder at full width, one batch of 640 images
      at its own input size in fp32 and bf16: finite, the JAX package's
-     shapes, fp32 ms per batch; a reference-format ``.pth`` round trip per
-     family. No zoo path launches the MHSA or the Sinkhorn kernel, as no
-     zoo encoder reaches a Pallas kernel in the JAX package; the bf16
+     shapes; a reference-format ``.pth`` round trip per family. No zoo path
+     launches the MHSA or the Sinkhorn kernel, as no zoo encoder reaches a
+     Pallas kernel in the JAX package; the bf16
      ``swin_nano_patch4_window5_80`` forward (hd 32, no autograd) launches
      the window-attention kernel once a block, 5, and every other forward
      none, counted;
@@ -116,8 +111,8 @@ Phases, in order; any failure exits non-zero:
      ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 104
      1-shot episodes, bf16 encoder, 8 a batch: the host-solver warning, 2
      MHSA launches a batch and no Sinkhorn launch; the same episodes with
-     ``sinkhorn_pallas`` in process; accuracies, episodes/s and the host
-     solver's seconds. Then, fp32 with TF32 off, the exact flows of one
+     ``sinkhorn_pallas`` in process; accuracies. Then, fp32 with TF32 off,
+     the exact flows of one
      batch's 3,000 problems meet both marginals to 1e-6 and cost no more
      than the Sinkhorn kernel's flows plus 1e-6; the kernel attention path
      against plain attention under exact over 64 episodes (the accuracy
@@ -126,8 +121,8 @@ Phases, in order; any failure exits non-zero:
  22. the 7 research heads (``token-label-ep``, ``-ep-rw``, ``-ep-cr``,
      ``-v2``, ``meta-token``, ``-v2``, ``-v3``) at full width over the
      synthetic 20 x 600 split, 5-way 1- and 5-shot, 15 queries, 4 episodes
-     a forward, bf16 and fp32: JAX's output shapes, finite, ms per forward,
-     2 MHSA launches per encoder call (meta-token encodes twice); then the
+     a forward, bf16 and fp32: JAX's output shapes, finite, 2 MHSA launches
+     per encoder call (meta-token encodes twice); then the
      fp32 kernel attention path against plain attention on 4 batches per
      (head, shot), the main logits' accuracy (``compute_acc_kshots`` for
      meta-token, top-1 of ``y`` per image for ``-v2``) under the accuracy
@@ -145,8 +140,8 @@ Phases, in order; any failure exits non-zero:
      result EQUAL to a float64 product of the same int8 operands; then the
      ``eval.run --int8`` CLI with and without ``--bf16`` beside ``--fold-bn``
      in both dtypes, 400 1-shot episodes each: accuracies equal to
-     in-process ``evaluate`` of the head built as the CLI builds it,
-     episodes/s, 2 MHSA launches a batch (tensor-core route in bf16,
+     in-process ``evaluate`` of the head built as the CLI builds it, 2 MHSA
+     launches a batch (tensor-core route in bf16,
      general in fp32) and 2 for ``--int8``'s calibration forward,
      |acc(int8) - acc(folded fp32)| < 0.08 (JAX's gate);
  25. ``eval.export`` through its CLI: the episode scorer (``--fold-bn
@@ -158,35 +153,31 @@ Phases, in order; any failure exits non-zero:
      while tracing;
  26. every artifact loaded and called in ONE fresh process that imports
      only torch and ``fewshot_vit_tpu_torch.kernels`` (for the two ops), on
-     seeded uint8 episodes: ms per call and the launches counted inside each
-     call (fused MHSA 2 per encoder forward, Sinkhorn 1 per EMD call and 0
-     for SFC's inner flows); held against the in-process forward (fp32
+     seeded uint8 episodes: the launches counted inside each call (fused
+     MHSA 2 per encoder forward, Sinkhorn 1 per EMD call and 0 for SFC's
+     inner flows); held against the in-process forward (fp32
      logits within 1e-4; bf16 and 5-shot SFC by the accuracy rule), and the
      ``cpu,cuda`` artifact moved to the card against the one traced there;
  27. the pretrain CLI for 2 epochs with ``--profile-dir``: a Chrome trace of
      epoch 2 with CUDA kernel events;
- 28. both kernels re-timed through their custom ops at the PERF table's
-     shapes: events around 20 calls, the device work alone (calls queued
-     behind a sleeping kernel) for the op and the bare launch, and the
-     host's dispatch time a call;
- 29. (after phase 28, from the phase-14 ``.pth``) the mesh, one rank a
+ 28. (no phase: the ops' times are ``kernels.bench``'s)
+ 29. (after phase 27, from the phase-14 ``.pth``) the mesh, one rank a
      process, launched from here with ``python -m torch.distributed.run``:
      this process exports the fp32 scorer with ``--data-shards 2`` and
      starts one NCCL rank (``mesh: {data: 1}``: an all-reduce, then a SUN
      step); while it runs, this process makes the one-rank twin of each
      mesh path (``eval.run --fold-bn --bf16`` and ``eval.run_emd`` 1-shot
-     grid bf16 over the same episodes, the SUN-D and SUN steps), then times
-     ``evaluate`` alone on the card;
+     grid bf16 over the same episodes, the SUN-D and SUN steps);
  30. two gloo ranks on cuda:0 (two ranks cannot share a card over NCCL):
      which collectives gloo takes with CUDA tensors; ``eval.run --mesh-data
      2`` (256 episodes) and ``eval.run_emd --mesh-data 2`` (64 episodes),
      every rank returning the whole result, held to the one-rank run by the
-     accuracy rule; ``evaluate(mesh=)``'s episodes/s; one ``meta_tune_emd``
+     accuracy rule; one ``meta_tune_emd``
      step (``bs`` 2, one episode a rank, fp32); the 2-shard scorer served by
      both ranks against phase 26's unsharded artifact (fp32, 1e-4); one SUN
      step of 512 images (256 a rank, global BN statistics, the dual view
-     and drop-path drawn for the whole batch, fp32 teacher, SGD) with host
-     clocks around its collectives. Launches counted in each rank: fused
+     and drop-path drawn for the whole batch, fp32 teacher, SGD). Launches
+     counted in each rank: fused
      MHSA 2 per encoder forward a rank (the same batches as one rank, half
      the episodes), Sinkhorn 1 per EMD batch and 1 per training episode a
      rank;
@@ -237,24 +228,18 @@ Phases, in order; any failure exits non-zero:
      (``bs`` 2, fp32) with 1 general-route launch per training episode;
      SUN-D fcn over ``visformer_small`` at 224 px (196 nodes) on phase 37's
      split, bf16 with 1 general-route Sinkhorn launch and 4 general-route
-     MHSA launches a batch, and the fp32 accuracy rule; then the kernel
-     timed at (3000, 38, 38), (375, 38, 38), (3000, 64, 64) and (3000, 196,
-     196) beside its plain version and its bound;
+     MHSA launches a batch, and the fp32 accuracy rule;
  39. (right after phase 38) Swin's window attention (``window_attention``,
      no TPU kernel behind it) at Swin-T's four stages for the Swin cell's
      2,560-image batch, shifted and not: the bare launch into a NaN-filled
      output and the op, each held to the plain version (computed 320 images
      at a time) within 1e-2 + 2^-6 |want| (two bf16 ulps), every launch
-     counted; then the bare launch timed beside its bytes-or-flops bound
-     and the plain version;
+     counted;
  40. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
      ``slice10``, ``slice11`` and kernels' JSON lines, then the result line.
 
-Run from the root of a checkout:  python3 chip_smoke.py [--profile DIR]
+Run from the root of a checkout:  python3 chip_smoke.py
 (the ranks of phases 30-31 and 36 run this file with ``--mesh-rank DIR``).
-(``--profile DIR`` also writes torch.profiler tables of one SUN-M and one
-SUN-D grid episode batch, of one training step of each trainer, and of one
-pretrain step of the slowest zoo family.)
 """
 
 from __future__ import annotations
@@ -271,14 +256,15 @@ import time
 WAY, SHOT, QUERY = 5, 1, 15
 EP_PER_BATCH = 128          # the bench configuration
 N_EPISODES = 256            # main-path run: 2 episode batches
-N_TIMED = 1024              # episodes/s run: 8 episode batches
 SUND_EP_PER_BATCH = 8       # SUN-D: 8 * 80 images * 13 patches = 8,320 encoder images
 SUND_EPISODES = 64          # SUN-D grid run: 8 episode batches
 SUND_FCN_EPISODES = 32
-SUND_TIMED = 32
 # the SUN-D eval CLI's lr and batch at 20 of its 100 steps; the export phase
 # runs the 5-shot config's lr and batch at 20 steps too (SFC5_KW)
 SFC_KW = {"steps": 20, "lr": 100.0, "batch_size": 4}
+# The peaks here and _bound / _sinkhorn_bound below are read by no phase:
+# benchmark/tests/test_bench_arith.py loads them from this file and holds
+# benchmark/roofline.py's copies equal to them, so they stay as they are.
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
 # fp32 as 3xTF32 on the tensor cores (the MHSA general route's arithmetic):
@@ -317,7 +303,7 @@ PRE_TRAIN = {"batch_size": 512, "max_epoch": 300, "optimizer": "adamw",
              "optimizer_args": {"lr": 5e-4, "scale_lr_by_batch": True, "weight_decay": 0.05,
                                 "schedule": "cosine", "warmup_epochs": 5}}
 MINI_TRAIN = {"n_classes": 64, "n_per_class": 600, "image_size": 84, "seed": 5}
-PRE_STEPS = 4               # a counted run of each dtype; the timed runs take as many
+PRE_STEPS = 4               # a counted run of each dtype
 SUN_KW = {"soft_k": 5, "bg_tokens": 10, "token_weight": 0.5}
 SUN_STEPS = 3
 FS_EPISODES = 16            # fs_eval: 2 episode batches of 8 per shot
@@ -335,7 +321,7 @@ ZOO_PRETRAIN = (("nest_micro_v2_gpsa", {}, "pretrain_mini_nest.yaml"),
                 ("swin_micro_resembed_80", {}, "pretrain_tiered_swin.yaml"),
                 ("levit_micro_80", {"drop_path_rate": 0.5}, "pretrain_mini_levit.yaml"),
                 ("lvvit_micro_80", {}, "pretrain_mini_lvvit.yaml"))
-ZOO_PRE_STEPS = 3           # a counted run of each dtype, then a timed run of as many
+ZOO_PRE_STEPS = 3           # a counted run of each dtype
 ZOO_EVAL_EPISODES = 400
 # the geometry of configs/meta_tune_im800_resnet18.yaml
 ZOO_META = {"way": 5, "shot": 1, "query": 15, "ep_per_batch": 4, "max_epoch": 50,
@@ -410,21 +396,6 @@ def _zero_counts(*wrappers) -> None:
         w.launches = 0
         for route in w.route_launches:
             w.route_launches[route] = 0
-
-
-def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    import torch
-
-    for _ in range(warm):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _bound(b, h, t, hd, dtype, peak=None):
@@ -659,17 +630,15 @@ def _check_sinkhorn(gen, dev):
     return errs
 
 
-def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
-    """Phases 6 and 7 for SUN-D; returns the Sinkhorn kernel's JSON entry."""
+def _run_sund(dev, ds, images_dev):
+    """Phase 6; returns the Sinkhorn kernel's JSON entry."""
     import torch
 
     from fewshot_vit_tpu_torch.core.registry import models
     from fewshot_vit_tpu_torch.eval.emd_eval import evaluate_emd, sample_emd_episode_indices
     from fewshot_vit_tpu_torch.heads import deepemd as _deepemd  # noqa: F401
-    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
-    from fewshot_vit_tpu_torch.kernels import sinkhorn as sinkhorn_mod
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
-    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas, sinkhorn_reference
+    from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
 
     def head_for(dtype, solver):
         return models.make("deepemd", encoder="visformer_micro_80",
@@ -702,10 +671,10 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
             _fail(f"SUN-D {label}: launches left the tensor-core and packed routes: {routes}")
         if accs.shape != (n,) or not ((accs >= 0) & (accs <= 1)).all():
             _fail(f"SUN-D {label}: episode accuracies malformed: shape {accs.shape}")
-        return sk, wall
+        return sk
 
     main_head = head_for(torch.bfloat16, "sinkhorn_pallas")
-    launches, _ = counted("1-shot grid bf16", main_head, SUND_EPISODES)
+    launches = counted("1-shot grid bf16", main_head, SUND_EPISODES)
     route_launches = dict(sinkhorn_pallas.route_launches)
 
     idx = sample_emd_episode_indices(ds, SUND_EPISODES, WAY, SHOT + QUERY, 2)
@@ -720,73 +689,14 @@ def _run_sund(dev, ds, images_dev, tag, gen, profile, card):
         _fail("SUN-D fp32 kernel path and plain path disagree")
 
     counted("1-shot fcn bf16 (N = 25)", main_head, SUND_FCN_EPISODES, mode="fcn")
-    _, wall = counted("5-shot grid bf16 with SFC", main_head, SUND_EP_PER_BATCH, shot=5)
-    print(f"timing {tag}: SUN-D 5-shot grid with SFC ({SFC_KW['steps']} steps, inner "
-          f"flows on torch ops): {wall:.2f} s for one batch of {SUND_EP_PER_BATCH} episodes")
-
-    detached_head = head_for(torch.bfloat16, "sinkhorn_detached")
-    eps = {"sinkhorn_pallas": [], "old routes": [], "sinkhorn_detached": []}
-    for solver in ("sinkhorn_pallas", "old routes", "sinkhorn_detached", "sinkhorn_detached",
-                   "old routes", "sinkhorn_pallas"):
-        head = detached_head if solver == "sinkhorn_detached" else main_head
-        old = "general" if solver == "old routes" else None
-        with mhsa_mod.force_route(old), sinkhorn_mod.force_route(old):
-            run(head, SUND_EP_PER_BATCH, seed=3)  # warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(head, SUND_TIMED, seed=4)
-            eps[solver].append(SUND_TIMED / (time.perf_counter() - t0))
-    print(f"timing {tag}: SUN-D 1-shot grid bf16 episodes/s, sinkhorn_pallas: "
-          f"{eps['sinkhorn_pallas']}; sinkhorn_detached: {eps['sinkhorn_detached']}; "
-          f"sinkhorn_pallas with both kernels' general routes forced: {eps['old routes']} "
-          f"({SUND_TIMED} episodes at ep_per_batch {SUND_EP_PER_BATCH})")
-
-    b_main = SUND_EP_PER_BATCH * WAY * QUERY * WAY
-    b_sfc = SUND_EP_PER_BATCH * SFC_KW["batch_size"] * WAY  # SFC's inner call at 5-shot
-    entry = None
-    b_train = WAY * QUERY * WAY  # one training episode's (query, prototype) pairs
-    for name, b, n in (("grid", b_main, 13), ("fcn", b_main, 25), ("sfc inner", b_sfc, 13),
-                       ("train episode", b_train, 13)):
-        cost, w1, w2 = _ot_problem(b, n, n, gen, dev)
-        route = sinkhorn_mod.sinkhorn_route(n, n)
-        times = {"old": [], "new": []}
-        for which in ("old", "new", "new", "old"):
-            with sinkhorn_mod.force_route("general" if which == "old" else None):
-                times[which].append(_time_ms(lambda: sinkhorn_pallas(cost, w1, w2)))
-        ms, prev_ms = sum(times["new"]) / 2, sum(times["old"]) / 2
-        plain_ms = _time_ms(lambda: sinkhorn_reference(cost, w1, w2), reps=5, warm=1)
-        bound_ms, bound_by = _sinkhorn_bound(b, n, n, 100)
-        print(f"timing {tag}: sinkhorn_pallas {name} ({b},{n},{n}) iters 100: kernel "
-              f"{ms:.4f} ms ({route} route; {times['new']}), general route {prev_ms:.4f} ms "
-              f"({times['old']}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-              f"kernel/bound {ms / bound_ms:.2f}")
-        if name == "grid":  # the main path's shape
-            entry = {"kernel_route": route, "ms": ms, "prev_ms": prev_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
-        if name == "train episode":
-            train_entry = {"shape": [b, n, n], "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by}
-        if name in ("grid", "fcn") and not ms < prev_ms:
-            _fail(f"the packed sinkhorn_pallas ({ms:.4f} ms) is not faster than the general "
-                  f"route ({prev_ms:.4f} ms) at {name}")
-
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(main_head, SUND_EP_PER_BATCH, seed=5)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-        with open(os.path.join(profile, "profile_sund_grid.txt"), "w") as f:
-            f.write(f"{card}\n{table}\n")
-        print("\n".join(table.splitlines()[:25]))
+    counted("5-shot grid bf16 with SFC", main_head, SUND_EP_PER_BATCH, shot=5)
     return {"name": "sinkhorn_pallas", "route": "cuda",
             "source": "fewshot_vit_tpu_torch/csrc/sinkhorn.cu",
             "replaces": "fewshot_vit_tpu/kernels/sinkhorn.py:71",
-            "launches": launches, "route_launches": route_launches, **entry,
-            "library_ms": None, "train_episode": train_entry}
+            "launches": launches, "kernel_route": "packed", "route_launches": route_launches}
 
 
-def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
+def _sinkhorn_general_paths(dev, ds, images_dev, tag, errs):
     """Phase 38: the paths of the Sinkhorn kernel's general route. SUN-D fcn
     with ``feature_pyramid: [2, 3]`` over visformer_micro_80 (5 x 5 + 2 x 2 +
     3 x 3 = 38 nodes): 1-shot episodes, 8 a batch, bf16 encoder, fp32 EMD, 1
@@ -797,9 +707,9 @@ def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
     Then SUN-D fcn over visformer_small at 224 px (14 x 14 = 196 nodes) on
     phase 37's split, BN statistics from its images as phase 37 sets them:
     bf16, 1 general-route launch and 4 general-route MHSA launches (its
-    stage-3 blocks) a batch, and the fp32 accuracy rule. Then the kernel
-    timed at the route's shapes against its plain version and its bound.
-    Returns the ``sinkhorn_kernel`` entry of the kernels' JSON line."""
+    stage-3 blocks) a batch, and the fp32 accuracy rule. Returns the
+    ``sinkhorn_kernel`` entry of the kernels' JSON line, with phase 4's
+    max|d| at the route's shapes (``errs``)."""
     import numpy as np
     import torch
 
@@ -826,12 +736,9 @@ def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
     def counted(label, head, data, images, n, mhsa_route, n_mhsa_batch, nodes):
         n_batches = math.ceil(n / SUND_EP_PER_BATCH)
         _zero_counts(fused_mhsa, sinkhorn_pallas)
-        t1 = time.perf_counter()
         acc, ci, accs = evaluate_emd(head, data, way=WAY, shot=SHOT, query=QUERY, n_episodes=n,
                                      ep_per_batch=SUND_EP_PER_BATCH, mode="fcn",
                                      images_dev=images, seed=11, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
         counts = _check_counts(label, {"fused_mhsa": dict(fused_mhsa.route_launches),
                                        "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)},
                                {"fused_mhsa": _mhsa_counts(n_mhsa_batch * n_batches, mhsa_route),
@@ -839,9 +746,8 @@ def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
         if accs.shape != (n,) or not ((accs >= 0) & (accs <= 1)).all():
             _fail(f"{label}: episode accuracies malformed: shape {accs.shape}")
         print(f"{label} (N = {nodes}): {n} episodes, acc={acc * 100:.2f} +- {ci * 100:.2f} %, "
-              f"{n / wall:.2f} episodes/s, launches {counts} ({n_batches} batches)")
-        return {"episodes": n, "acc": float(acc), "episodes_per_s": n / wall,
-                "launches": counts}
+              f"launches {counts} ({n_batches} batches)")
+        return {"episodes": n, "acc": float(acc), "launches": counts}
 
     def fp32_rule(label, heads, data, images, n, seed):
         """The accuracy rule between the kernel's and the plain solver's
@@ -877,7 +783,6 @@ def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
     pyramid = {"feature_pyramid": [2, 3]}
     nodes = 25 + 4 + 9
     head = make(ENCODER, torch.bfloat16, "sinkhorn_pallas", **pyramid)
-    counted("SUN-D fcn + pyramid bf16", head, ds, images_dev, 8, "tensor_core", 2, nodes)  # warm
     paths["pyramid_eval"] = counted("SUN-D fcn + pyramid bf16", head, ds, images_dev,
                                     PYRAMID_EPISODES, "tensor_core", 2, nodes)
     launches = dict(sinkhorn_pallas.route_launches)
@@ -949,27 +854,11 @@ def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
     del small_dev
     torch.cuda.empty_cache()
     out["paths"] = paths
-    out["paths_s"] = time.perf_counter() - t0
-
-    # 3. the kernel at the route's shapes against its plain version and bound
-    rows = []
-    for name, b, n in (("pyramid", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 38),
-                       ("pyramid train episode", WAY * QUERY * WAY, 38),
-                       ("old limit", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 64),
-                       ("small 224 fcn", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 196)):
-        cost, w1, w2 = _ot_problem(b, n, n, gen, dev)
-        assert sinkhorn_mod.sinkhorn_route(n, n) == "general"
-        times = [_time_ms(lambda: sinkhorn_pallas(cost, w1, w2)) for _ in range(2)]
-        plain_ms = _time_ms(lambda: sinkhorn_reference(cost, w1, w2), reps=2, warm=1)
-        bound_ms, bound_by = _sinkhorn_bound(b, n, n, 100)
-        ms = sum(times) / 2
-        print(f"timing {tag}: sinkhorn_pallas general route {name} ({b},{n},{n}) iters 100: "
-              f"kernel {ms:.4f} ms ({times}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}); kernel/bound {ms / bound_ms:.2f}")
-        rows.append({"case": name, "shape": [b, n, n], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": errs[name]})
-        del cost, w1, w2
-    torch.cuda.empty_cache()
+    rows = [{"case": name, "shape": [b, n, n], "max_abs_err": errs[name]}
+            for name, b, n in (("pyramid", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 38),
+                               ("pyramid train episode", WAY * QUERY * WAY, 38),
+                               ("old limit", 8, 64),
+                               ("small 224 fcn", SUND_EP_PER_BATCH * WAY * QUERY * WAY, 196))]
     out["s"] = time.perf_counter() - t0
     print(f"phase 38 (the general Sinkhorn route's paths) {tag}: {out['s']:.1f} s")
     head_row = rows[0]
@@ -980,9 +869,7 @@ def _sinkhorn_general_paths(dev, ds, images_dev, tag, gen, errs):
             "route_launches": launches,
             "launches_path": "phase 38, SUN-D fcn with feature_pyramid [2, 3]",
             "max_abs_err": head_row["max_abs_err"], "shape": head_row["shape"],
-            "ms": head_row["ms"], "plain_ms": head_row["plain_ms"],
-            "bound_ms": head_row["bound_ms"], "bound_by": head_row["bound_by"],
-            "library_ms": None, "rows": rows, **out}
+            "rows": rows, **out}
 
 
 def _window_attention(dev, tag, gen):
@@ -990,12 +877,12 @@ def _window_attention(dev, tag, gen):
     import torch
 
     from fewshot_vit_tpu_torch.kernels import window as wa
-    from fewshot_vit_tpu_torch.kernels.bench import WINDOW_STAGES, window_bound_ms
+    from fewshot_vit_tpu_torch.kernels.bench import WINDOW_STAGES
 
     bf16, ws = torch.bfloat16, 7
     b, k = WINDOW_BATCH, WINDOW_CHECK_IMAGES
     wa.window_attention.launches = 0
-    rows, launched, warm, reps = [], 0, 3, 20
+    rows, launched = [], 0
     for res, c, heads, shift in WINDOW_STAGES:
         table = torch.randn((2 * ws - 1) ** 2, heads, generator=gen, device=dev)
         scale = (c // heads) ** -0.5
@@ -1026,26 +913,14 @@ def _window_attention(dev, tag, gen):
         if wa.window_attention.launches != launched:
             _fail(f"window_attention: expected {launched} launches, counted "
                   f"{wa.window_attention.launches}")
-        out = torch.empty(b, res, res, c, dtype=bf16, device=dev)
-        ms = _time_ms(lambda: wa._launch(qkv, table, out, heads, ws, shift, scale), reps, warm)
-        launched += warm + reps
-        plain_ms = _time_ms(lambda: wa.window_attention_reference(qkv, table, heads, ws, shift,
-                                                                  scale), reps=2, warm=1)
-        bound_ms = window_bound_ms(b, res, c, heads, ws)
-        print(f"timing {tag}: window_attention ({b},{res},{res},{3 * c}) heads {heads} shift "
-              f"{shift}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms; "
-              f"kernel/bound {ms / bound_ms:.2f}")
-        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         rows.append(row)
-        del qkv, out, table
+        del qkv, table
         torch.cuda.empty_cache()
-    head = rows[0]
     return {"name": "window_attention", "kernel": "window_attn_kernel", "route": "cuda",
             "source": "fewshot_vit_tpu_torch/csrc/window_attn.cu", "replaces": None,
             "launches": launched, "launches_path": "phase 39, Swin-T's stages",
             "max_abs_err": max(e for r in rows for e in r["max_abs_err"].values()),
-            "shape": head["shape"], "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "rows": rows}
+            "shape": rows[0]["shape"], "rows": rows}
 
 
 def _state_copy(module):
@@ -1071,18 +946,7 @@ def _check_moved(label, module, before, bn_frozen, static=()):
             _fail(f"{label}: BN statistic {k} {'changed' if bn_frozen else 'did not change'}")
 
 
-def _profile_to(path, card, fn):
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-    with open(path, "w") as f:
-        f.write(f"{card}\n{table}\n")
-    print("\n".join(table.splitlines()[:25]))
-
-
-def _train_sund(dev, ds, images_dev, val_ds, tag, profile, card):
+def _train_sund(dev, ds, images_dev, val_ds):
     """Phase 8 and its share of phase 10. Returns (training entry, launch counts)."""
     import numpy as np
     import torch
@@ -1211,37 +1075,14 @@ def _train_sund(dev, ds, images_dev, val_ds, tag, profile, card):
     del out, grads_k, grads_p
     torch.cuda.empty_cache()
 
-    # timings, in turns: episodes/s of training with each solver (fp32), then bf16
-    timed_steps = 2
-    eps = {"sinkhorn_pallas": [], "sinkhorn_detached": []}
-    runs = {s: make(s) for s in eps}
-    for solver in ("sinkhorn_pallas", "sinkhorn_detached", "sinkhorn_detached",
-                   "sinkhorn_pallas"):
-        _, _, st, ef = runs[solver]
-        ef(st, images_dev, draw_idx(1, 2), (0, 2))  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ef(st, images_dev, draw_idx(timed_steps, 3), (0, 3))["loss"].cpu()
-        eps[solver].append(timed_steps * bs / (time.perf_counter() - t0))
-    del runs
-    torch.cuda.empty_cache()
     _, _, st16, ef16 = make("sinkhorn_pallas", torch.bfloat16)
-    ef16(st16, images_dev, draw_idx(1, 2), (0, 2))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss16 = ef16(st16, images_dev, draw_idx(timed_steps, 3), (0, 3))["loss"].cpu().numpy()
-    eps_bf16 = timed_steps * bs / (time.perf_counter() - t0)
+    loss16 = ef16(st16, images_dev, draw_idx(2, 3), (0, 3))["loss"].cpu().numpy()
+    print(f"SUN-D meta-tuning bf16 encoder {c['solver']}: 2 steps of bs {bs}, losses "
+          f"{loss16.tolist()}")
     if not np.isfinite(loss16).all():
         _fail(f"SUN-D meta-tuning bf16: a loss is not finite: {loss16}")
-    print(f"timing {tag}: SUN-D meta-tuning episodes/s (bs {bs}, {timed_steps} steps a run), "
-          f"fp32 sinkhorn_pallas: {eps['sinkhorn_pallas']}; fp32 sinkhorn_detached: "
-          f"{eps['sinkhorn_detached']}; bf16 encoder sinkhorn_pallas: {eps_bf16:.3f}")
-    if profile:
-        _profile_to(os.path.join(profile, "profile_train_sund.txt"), card,
-                    lambda: epoch_fn(state, images_dev, draw_idx(1, 4), (0, 4)))
-    entry = {"sund_train_episodes_per_s": {**eps, "sinkhorn_pallas_bf16": eps_bf16},
-             "sund_train_peak_gib": peak, "sund_train_losses": losses.tolist(),
-             "sund_val_acc": va}
+    entry = {"sund_train_peak_gib": peak, "sund_train_losses": losses.tolist(),
+             "sund_train_bf16_losses": loss16.tolist(), "sund_val_acc": va}
     # per route, as the other paths' counts: the check above left all MHSA launches on the
     # general route and all Sinkhorn launches on the packed one
     val_counts["fused_mhsa"] = _mhsa_counts(val_counts["fused_mhsa"], "general")
@@ -1249,7 +1090,7 @@ def _train_sund(dev, ds, images_dev, val_ds, tag, profile, card):
     return entry, {"sund_meta_tune": train_counts, "sund_validation": val_counts}
 
 
-def _train_sunm(dev, ds, images_dev, val_ds, tag, profile, card):
+def _train_sunm(dev, ds, images_dev, val_ds):
     """Phase 9 and its share of phase 10. Returns (training entry, launch counts)."""
     import numpy as np
     import torch
@@ -1347,27 +1188,6 @@ def _train_sunm(dev, ds, images_dev, val_ds, tag, profile, card):
     if np.array_equal(other, a):
         _fail("another epoch key gave the same losses: the generators are not keyed")
     torch.backends.cudnn.deterministic = cudnn_det
-
-    # timings, in turns
-    timed = 6
-    rate = {"torch.bfloat16": [], "torch.float32": []}
-    states = {str(d): make(d)[1] for d in (torch.bfloat16, torch.float32)}
-    for name in ("torch.bfloat16", "torch.float32", "torch.float32", "torch.bfloat16"):
-        run(states[name], 1, 2)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(states[name], timed, 3)["loss"].cpu()
-        rate[name].append(timed / (time.perf_counter() - t0))
-    print(f"timing {tag}: SUN-M meta-tuning steps/s ({epb} episodes, "
-          f"{epb * way * (shot + query)} images a step; {timed} steps a run), bf16: "
-          f"{rate['torch.bfloat16']}; fp32 (TF32 off): {rate['torch.float32']}; "
-          f"episodes/s = {epb} x steps/s")
-    if profile:
-        _profile_to(os.path.join(profile, "profile_train_sunm.txt"), card,
-                    lambda: run(states["torch.bfloat16"], 1, 4))
-    entry.update({"sunm_train_steps_per_s": {"bf16": rate["torch.bfloat16"],
-                                             "fp32": rate["torch.float32"]},
-                  "sunm_episodes_per_step": epb})
     return entry, counts
 
 
@@ -1501,8 +1321,7 @@ def _check_counts(label, counts, want):
     return counts
 
 
-def _train_pretrain(dev, mini, images_dev, labels_dev, val_ds, fs_ds, fs_images, tag, profile,
-                    card, ckpt_dir):
+def _train_pretrain(dev, mini, images_dev, labels_dev, val_ds, fs_ds, fs_images, ckpt_dir):
     """Phase 11. Returns (training entry, launch counts)."""
     import numpy as np
     import torch
@@ -1612,28 +1431,10 @@ def _train_pretrain(dev, mini, images_dev, labels_dev, val_ds, fs_ds, fs_images,
         _fail("pretrain SAM/EMA: a loss is not finite or the EMA shadow did not move")
     del model, state
     torch.cuda.empty_cache()
-
-    # timings, in turns
-    rate = {"float32": [], "bfloat16": []}
-    states = {"float32": make(torch.float32)[1], "bfloat16": make(torch.bfloat16)[1]}
-    for name in ("float32", "bfloat16", "bfloat16", "float32"):
-        run(states[name], 1, 3)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(states[name], PRE_STEPS, 4)["loss"].cpu()
-        rate[name].append(PRE_STEPS / (time.perf_counter() - t0))
-    print(f"timing {tag}: pretrain steps/s ({bs} images a step, cropaug, {PRE_STEPS} steps a "
-          f"run), fp32 (TF32 off): {rate['float32']}; bf16: {rate['bfloat16']}")
-    if profile:
-        _profile_to(os.path.join(profile, "profile_train_pretrain.txt"), card,
-                    lambda: run(states["float32"], 1, 5)["loss"].cpu())
-    entry["pretrain_steps_per_s"] = rate
-    del states
-    torch.cuda.empty_cache()
     return entry, counts
 
 
-def _train_sun(dev, mini, images_dev, labels_dev, tag, profile, card, ckpt_dir):
+def _train_sun(dev, mini, images_dev, labels_dev, ckpt_dir):
     """Phase 12. Returns (training entry, launch counts)."""
     import numpy as np
     import torch
@@ -1741,28 +1542,6 @@ def _train_sun(dev, mini, images_dev, labels_dev, tag, profile, card, ckpt_dir):
     entry["sun_kernel_vs_plain"] = {"soft_label_share_differing": differ,
                                     "loss_rel": rel_loss, "worst_grad_rel": worst}
     del student, kernel_t, plain_t, out, grads_k, grads_p
-    torch.cuda.empty_cache()
-
-    # timings, in turns: fp32 student and teacher, then bf16 student and teacher
-    rate = {"float32": [], "bfloat16": []}
-    runs = {"float32": make(torch.float32, torch.float32),
-            "bfloat16": make(torch.bfloat16, torch.bfloat16)}
-    for name in ("float32", "bfloat16", "bfloat16", "float32"):
-        _, teacher, state = runs[name]
-        run(state, teacher, 1, 3)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(state, teacher, SUN_STEPS, 4)["loss"].cpu()
-        rate[name].append(SUN_STEPS / (time.perf_counter() - t0))
-    print(f"timing {tag}: SUN steps/s ({bs} images a step, dual view, {SUN_STEPS} steps a run), "
-          f"fp32 student and teacher (TF32 off): {rate['float32']}; bf16 student and teacher: "
-          f"{rate['bfloat16']}")
-    if profile:
-        _, teacher, state = runs["float32"]
-        _profile_to(os.path.join(profile, "profile_train_sun.txt"), card,
-                    lambda: run(state, teacher, 1, 5)["loss"].cpu())
-    entry["sun_steps_per_s"] = rate
-    del runs
     torch.cuda.empty_cache()
     return entry, counts
 
@@ -1996,20 +1775,15 @@ def _eval_from_pth(dev, tmp, tag):
     counts["eval_cli_pth_bf16"] = _expect_counts("eval CLI from .pth, bf16", "tensor_core",
                                                  per * n_batches)
     head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     m, h, want = evaluate(head, ds, n_episodes=CLI_EPISODES, ep_per_batch=CLI_EP_PER_BATCH,
                           seed=DEFAULT_SEED, images_dev=images_dev, device=dev)
-    eps = CLI_EPISODES / (time.perf_counter() - t0)
     line = f"test epoch 1: acc={m * 100:.2f} +- {h * 100:.2f} (%)"
     print(f"eval CLI {tag} load: .pth, --fold-bn --bf16, {CLI_EPISODES} episodes: wall "
           f"{wall:.2f} s (dataset, model, load, fold, upload, eval); in-process evaluate of the "
-          f"same head and episodes: {eps:.1f} episodes/s, '{line}'; launches "
-          f"{counts['eval_cli_pth_bf16']}")
+          f"same head and episodes: '{line}'; launches {counts['eval_cli_pth_bf16']}")
     if line not in text or not np.array_equal(accs, want):
         _fail("the eval CLI from .pth and in-process evaluate disagree")
-    entry.update({"cli_pth_bf16_wall_s": wall, "evaluate_epb8_bf16_episodes_per_s": eps,
-                  "cli_pth_bf16_acc": m})
+    entry.update({"cli_pth_bf16_wall_s": wall, "cli_pth_bf16_acc": m})
 
     path32 = _write_cfg(tmp, "eval_sund_pth", cfg_sund)
     n32 = math.ceil(CLI_FP32_EPISODES / CLI_EP_PER_BATCH)
@@ -2043,10 +1817,7 @@ def _eval_from_pth(dev, tmp, tag):
     if aucs.shape != (CLI_EPISODES,) or not ((aucs >= 0) & (aucs <= 1)).all():
         _fail(f"--sauc: per-episode AUCs malformed: shape {aucs.shape}")
     head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     _, _, want = eval_run.sauc_eval(head, ds, CLI_EPISODES, 1, images_dev=images_dev, device=dev)
-    sauc_eps = CLI_EPISODES / (time.perf_counter() - t0)
     if not np.array_equal(aucs, want):
         _fail("--sauc: the CLI and in-process sauc_eval disagree")
     cfg_plain = dict(cfg, model_args={"encoder_args": {"use_pallas_attn": False}})
@@ -2058,15 +1829,13 @@ def _eval_from_pth(dev, tmp, tag):
         del hd
     mean_d = float(np.abs(a["kernel"] - a["plain"]).mean())
     print(f"--sauc {tag}: {CLI_EPISODES} 2-way episodes bf16 on synthetic-local: wall "
-          f"{wall:.2f} s, in-process {sauc_eps:.1f} episodes/s, mean AUC {aucs.mean():.4f} "
-          f"(per-episode std {aucs.std():.4f}), equal to the CLI's; launches "
-          f"{counts['sauc_bf16']}; fp32 (TF32 off) kernel path vs plain path: mean|dAUC|="
-          f"{mean_d:.2e} (limit 0.005), mean AUC {a['kernel'].mean():.4f} vs "
-          f"{a['plain'].mean():.4f}")
+          f"{wall:.2f} s, mean AUC {aucs.mean():.4f} (per-episode std {aucs.std():.4f}), "
+          f"equal to the CLI's; launches {counts['sauc_bf16']}; fp32 (TF32 off) kernel path vs "
+          f"plain path: mean|dAUC|={mean_d:.2e} (limit 0.005), mean AUC "
+          f"{a['kernel'].mean():.4f} vs {a['plain'].mean():.4f}")
     if not mean_d <= 0.005:
         _fail("--sauc: the fp32 kernel path and the plain path disagree")
-    entry.update({"sauc_bf16_wall_s": wall, "sauc_bf16_episodes_per_s": sauc_eps,
-                  "sauc_fp32_kernel_vs_plain_mean_abs_d": mean_d})
+    entry.update({"sauc_bf16_wall_s": wall, "sauc_fp32_kernel_vs_plain_mean_abs_d": mean_d})
     del head, images_dev
     torch.cuda.empty_cache()
     return entry, counts, pth
@@ -2173,25 +1942,21 @@ def _loaders(dev, tmp, pth, tag):
         head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16,
                                                                  dev))
         images_dev = upload_images(ds.images, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _, _, want = evaluate(head, ds, n_episodes=LOADER_EPISODES,
                               ep_per_batch=CLI_EP_PER_BATCH, seed=DEFAULT_SEED,
                               images_dev=images_dev, device=dev)
-        eps = LOADER_EPISODES / (time.perf_counter() - t0)
         if not np.array_equal(accs, want):
             _fail(f"eval CLI on {name} and in-process evaluate disagree")
         print(f"loader {tag} {name} ({desc}, to 80x80): load {load_s:.2f} s; eval CLI "
               f"{LOADER_EPISODES} episodes --fold-bn --bf16: wall {wall:.2f} s (the load "
-              f"included); in-process "
-              f"evaluate of the same episodes {eps:.1f} episodes/s; launches "
+              f"included), accuracies equal to in-process evaluate's; launches "
               f"{counts[f'eval_cli_{name}']}")
-        entry[name] = {"load_s": load_s, "cli_wall_s": wall, "episodes_per_s": eps}
+        entry[name] = {"load_s": load_s, "cli_wall_s": wall}
         del ds, head, images_dev
     return entry, counts
 
 
-def _zoo_pretrain(dev, mini, images_dev, labels_dev, tag, profile, card, tmp):
+def _zoo_pretrain(dev, mini, images_dev, labels_dev, tag, tmp):
     """Phase 17. Returns (training entry, launch counts, checkpoint per family)."""
     import numpy as np
     import torch
@@ -2225,8 +1990,7 @@ def _zoo_pretrain(dev, mini, images_dev, labels_dev, tag, profile, card, tmp):
 
     entry, counts, ckpts = {}, {}, {}
     for name, args, config in ZOO_PRETRAIN:
-        e = entry[name] = {"config": f"configs/{config}", "steps_per_s": {}, "peak_gib": {},
-                           "losses": {}}
+        e = entry[name] = {"config": f"configs/{config}", "peak_gib": {}, "losses": {}}
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             model, state = make(name, args, dtype)
@@ -2241,19 +2005,14 @@ def _zoo_pretrain(dev, mini, images_dev, labels_dev, tag, profile, card, tmp):
                 _fail(f"zoo pretrain {name} {dn}: a loss is not finite: {losses}")
             _check_moved(f"zoo pretrain {name} {dn}", model, before, bn_frozen=False,
                          static=ZOO_STATIC.get(name, ()))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(state, ZOO_PRE_STEPS, 2)
-            rate = ZOO_PRE_STEPS / (time.perf_counter() - t0)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             counts[f"zoo_pretrain_{name}_{dn}"] = _expect_counts(
                 f"zoo pretrain {name} {dn}", "general", 0)
             print(f"zoo pretrain {tag} {name} {dn} (configs/{config}: {bs} images a step, "
                   f"cropaug, encoder_args {args}): losses {losses.tolist()} ({warm:.2f} s with "
-                  f"warm-up), then {rate:.3f} steps/s over {ZOO_PRE_STEPS} steps, peak memory "
-                  f"{peak:.2f} GiB; every parameter and {n_bn} BN statistics moved; kernel "
-                  f"launches 0")
-            e["steps_per_s"][dn], e["peak_gib"][dn], e["losses"][dn] = rate, peak, losses.tolist()
+                  f"warm-up), peak memory {peak:.2f} GiB; every parameter and {n_bn} BN "
+                  f"statistics moved; kernel launches 0")
+            e["peak_gib"][dn], e["losses"][dn] = peak, losses.tolist()
             if dtype == torch.float32:  # phase 18's weights
                 ckpts[name] = os.path.join(tmp, f"zoo_{name}")
                 save_variables(ckpts[name], model.state_dict(),
@@ -2261,16 +2020,7 @@ def _zoo_pretrain(dev, mini, images_dev, labels_dev, tag, profile, card, tmp):
                                 "encoder": name})
             del model, state
             torch.cuda.empty_cache()
-    slowest = min(entry, key=lambda n: entry[n]["steps_per_s"]["float32"])
-    if profile:
-        _, state = make(slowest, dict(ZOO_PRETRAIN[[z[0] for z in ZOO_PRETRAIN].index(slowest)][1]),
-                        torch.float32)
-        run(state, 1, 3)
-        _profile_to(os.path.join(profile, "profile_train_zoo_pretrain.txt"), card,
-                    lambda: run(state, 1, 4))
-        del state
-        torch.cuda.empty_cache()
-    return {"zoo_pretrain": entry, "zoo_pretrain_slowest": slowest}, counts, ckpts
+    return {"zoo_pretrain": entry}, counts, ckpts
 
 
 def _zoo_eval(dev, ds, images_dev, ckpts, tag, tmp):
@@ -2301,19 +2051,15 @@ def _zoo_eval(dev, ds, images_dev, ckpts, tag, tmp):
         if "WARNING" in text or accs.shape != (ZOO_EVAL_EPISODES,):
             _fail(f"zoo eval CLI {name}: random weights or malformed accuracies")
         head = eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         m, _, want = evaluate(head, ds, n_episodes=ZOO_EVAL_EPISODES,
                               ep_per_batch=CLI_EP_PER_BATCH, seed=DEFAULT_SEED,
                               images_dev=images_dev, device=dev)
-        eps = ZOO_EVAL_EPISODES / (time.perf_counter() - t0)
         if not np.array_equal(accs, want):
             _fail(f"zoo eval CLI {name} and in-process evaluate disagree")
         print(f"zoo eval CLI {tag} {name}, load_encoder: its phase-17 checkpoint, "
               f"{ZOO_EVAL_EPISODES} episodes bf16: wall {wall:.2f} s, acc {m:.4f}; in-process "
-              f"evaluate of the same head and episodes {eps:.1f} episodes/s, accuracies equal; "
-              f"kernel launches 0")
-        entry[name] = {"cli_wall_s": wall, "episodes_per_s": eps, "acc": m}
+              f"evaluate of the same head and episodes: accuracies equal; kernel launches 0")
+        entry[name] = {"cli_wall_s": wall, "acc": m}
         del head
         if name != "levit_micro_80":
             continue
@@ -2442,9 +2188,7 @@ def _zoo_forward(dev, tag, tmp):
             window_attention.launches = 0
             with torch.inference_mode():
                 dense, pooled = enc(x)
-                windows = window_attention.launches
-                if dtype == torch.float32:
-                    e["fp32_ms"] = _time_ms(lambda: enc(x), reps=2, warm=1)
+            windows = window_attention.launches
             want = ZOO_WINDOW_LAUNCHES.get(name, 0) if dtype == torch.bfloat16 else 0
             if windows != want:
                 _fail(f"zoo forward {name} {dn}: expected {want} window-attention launches, "
@@ -2461,10 +2205,9 @@ def _zoo_forward(dev, tag, tmp):
                 _fail(f"zoo forward {name} {dn}: an output is not finite")
             del enc, dense, pooled
         print(f"zoo forward {tag} {name}: {ZOO_BATCH} images at {size}x{size}, fp32 and bf16 "
-              f"finite, dense {dense_shape}, pooled {width} as the JAX package's; fp32 "
-              f"{e['fp32_ms']:.2f} ms a batch; MHSA and Sinkhorn launches 0, window-attention "
-              f"launches {e['window_launches_float32']} fp32, {e['window_launches_bfloat16']} "
-              f"bf16")
+              f"finite, dense {dense_shape}, pooled {width} as the JAX package's; MHSA and "
+              f"Sinkhorn launches 0, window-attention launches {e['window_launches_float32']} "
+              f"fp32, {e['window_launches_bfloat16']} bf16")
         del x
         torch.cuda.empty_cache()
     for name in ZOO_PTH:
@@ -2523,26 +2266,12 @@ def _exact_emd(dev, ds, images_dev, tag, tmp):
         "model_args": {"encoder": ENCODER, "encoder_args": {"use_pallas_attn": True}},
         "load": ckpt})
     n_batches = math.ceil(EXACT_EPISODES / CLI_EP_PER_BATCH)
-    eval_wall = []
-    orig_eval = run_emd.evaluate_emd
-
-    def timed_eval(*a, **k):
-        t = time.perf_counter()
-        out = orig_eval(*a, **k)
-        torch.cuda.synchronize()
-        eval_wall.append(time.perf_counter() - t)
-        return out
-
-    run_emd.evaluate_emd = timed_eval
     host0 = deepemd.exact_flows.host_seconds
     _zero_counts(fused_mhsa, sinkhorn_pallas)
     t0 = time.perf_counter()
-    try:
-        accs_x, text = _cli(run_emd, ["--config", cfg, "--episodes", str(EXACT_EPISODES),
-                                      "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16",
-                                      "--device", str(dev)])
-    finally:
-        run_emd.evaluate_emd = orig_eval
+    accs_x, text = _cli(run_emd, ["--config", cfg, "--episodes", str(EXACT_EPISODES),
+                                  "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16",
+                                  "--device", str(dev)])
     cli_wall = time.perf_counter() - t0
     host_s = deepemd.exact_flows.host_seconds - host0
     counts = {"run_emd_cli_exact": _expect_counts("run_emd CLI solver exact", "tensor_core",
@@ -2556,20 +2285,16 @@ def _exact_emd(dev, ds, images_dev, tag, tmp):
     sk_head = head_for(torch.bfloat16, "sinkhorn_pallas")
     sk_head.load_state_dict(torch.load(os.path.join(ckpt, "arrays.pt"), map_location=dev))
     _zero_counts(fused_mhsa, sinkhorn_pallas)
-    t0 = time.perf_counter()
     _, _, accs_s = evaluate_emd(sk_head, ds, n_episodes=EXACT_EPISODES,
                                 ep_per_batch=CLI_EP_PER_BATCH, images_dev=images_dev, device=dev)
-    torch.cuda.synchronize()
-    sk_wall = time.perf_counter() - t0
     counts["emd_sinkhorn_beside_exact"] = _expect_counts(
         "sinkhorn_pallas beside exact", "tensor_core", _mhsa_per_forward() * n_batches,
         n_batches)
     del sk_head
-    eps_x, eps_s = EXACT_EPISODES / eval_wall[0], EXACT_EPISODES / sk_wall
     print(f"solver exact {tag}: run_emd CLI {EXACT_EPISODES} episodes bf16 acc "
-          f"{accs_x.mean():.4f}, {eps_x:.2f} episodes/s ({eval_wall[0]:.2f} s eval, "
-          f"{cli_wall:.2f} s CLI), {host_s:.2f} s in the host solver; sinkhorn_pallas on the "
-          f"same episodes acc {accs_s.mean():.4f}, {eps_s:.2f} episodes/s; launches {counts}")
+          f"{accs_x.mean():.4f} ({cli_wall:.2f} s CLI, {host_s:.2f} s of it in the host "
+          f"solver); sinkhorn_pallas on the same episodes acc {accs_s.mean():.4f}; launches "
+          f"{counts}")
 
     # fp32, TF32 off: exact flows against the Sinkhorn kernel's on the batch's
     # problems, then the kernel attention path against plain attention
@@ -2641,8 +2366,7 @@ def _exact_emd(dev, ds, images_dev, tag, tmp):
         _fail(f"meta_tune_emd solver exact: the loss is not finite: {loss}")
     _check_moved("meta_tune_emd solver exact", head, before, bn_frozen=True)
     return {"episodes": EXACT_EPISODES, "acc_exact": float(accs_x.mean()),
-            "acc_sinkhorn_pallas": float(accs_s.mean()), "episodes_per_s_exact": eps_x,
-            "episodes_per_s_sinkhorn_pallas": eps_s, "host_solver_s": host_s,
+            "acc_sinkhorn_pallas": float(accs_s.mean()), "host_solver_s": host_s,
             "cli_wall_s": cli_wall, "problems_checked": int(cost.shape[0]),
             "marginal_err": max(row, col), "objective_minus_sinkhorn_max": excess,
             "kernel_vs_plain_differ": differ, "kernel_vs_plain_mean_dacc": mean_d,
@@ -2652,7 +2376,7 @@ def _exact_emd(dev, ds, images_dev, tag, tmp):
 def _research_heads(dev, ds, images_dev, tag):
     """Phase 22: the 7 research heads at full width, 5-way 1- and 5-shot,
     15 queries, ``HEAD_E`` episodes a forward, fp32 and bf16: JAX's shapes,
-    finite outputs, ms per forward, MHSA launches per encoder call; then the
+    finite outputs, MHSA launches per encoder call; then the
     fp32 kernel attention path against plain attention. Returns (entry,
     launch counts per path)."""
     import numpy as np
@@ -2729,16 +2453,11 @@ def _research_heads(dev, ds, images_dev, tag):
             torch.cuda.synchronize()
             counts[f"research_heads_{dname}"] = _expect_counts(
                 f"research heads {dname}", route, _mhsa_per_forward() * n_calls)
-            for name, head in heads.items():
-                for shot in (1, 5):
-                    xs, xq = batch(shot, 0)
-                    entry.setdefault(name, {})[f"ms_{dname}_{shot}shot"] = _time_ms(
-                        lambda: call(head, name, xs, xq), reps=10, warm=2)
             del heads
             torch.cuda.empty_cache()
         print(f"research heads {tag}: {len(HEAD_NAMES)} heads x 1/5-shot x bf16/fp32, "
               f"{HEAD_E} episodes of {WAY}-way {QUERY}-query a forward, JAX's shapes, finite; "
-              f"launches {counts}; ms per forward {json.dumps(entry)}")
+              f"launches {counts}")
 
         differ, total, mean_d, worst = 0, 0, [], {}
         for name in HEAD_NAMES:
@@ -2842,12 +2561,10 @@ EXPORT_EMD_EPB = {1: 8, 5: 1}  # episodes per EMD artifact call (5-shot: 20 SFC 
 EXPORT_ENCODER_BATCH = 128
 # sund_mini_visformer_5shot.yaml's sfc_*, 20 of its 100 steps (as phase 6 runs them)
 SFC5_KW = {"sfc_lr": 0.1, "sfc_update_step": 20, "sfc_bs": 4}
-PR8_MS = {"fused_mhsa (10240*6,100,42) bfloat16": 1.3517, "fused_mhsa (512*6,100,42) bfloat16": 0.0835,
-          "fused_mhsa (512*6,100,42) float32": 0.6923, "sinkhorn_pallas (3000,13,13)": 0.0611}
 
 # A fresh process that imports only torch and the port's kernels module (for
 # the two ops), loads each exported artifact, calls it on saved uint8 inputs
-# and reports ms per call and the kernel launches counted inside the call.
+# and reports the kernel launches counted inside the call.
 _SERVE = r'''
 import json, sys, time
 import torch
@@ -2858,7 +2575,6 @@ spec = json.load(open(sys.argv[1]))
 torch.backends.cuda.matmul.allow_tf32 = False  # as the in-process forwards run
 torch.backends.cudnn.allow_tf32 = False
 dev = torch.device(spec["device"])
-sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 report = {}
 for a in spec["artifacts"]:
     t0 = time.perf_counter()
@@ -2868,106 +2584,20 @@ for a in spec["artifacts"]:
     prog = ep.module()
     load_s = time.perf_counter() - t0
     batches = [[t.to(dev) for t in b] for b in torch.load(a["inputs"])]
-    outs, ms = [], []
+    outs = []
     with torch.no_grad():
-        if a["warm"]:
-            prog(*batches[0])
         for batch in batches:
             for w in (K.fused_mhsa, K.sinkhorn_pallas):
                 w.launches = 0
                 w.route_launches = {r: 0 for r in w.route_launches}
-            sync()
-            t0 = time.perf_counter()
             outs.append(prog(*batch).cpu())
-            ms.append((time.perf_counter() - t0) * 1e3)
             launches = {"fused_mhsa": dict(K.fused_mhsa.route_launches),
                         "sinkhorn_pallas": dict(K.sinkhorn_pallas.route_launches)}
     torch.save(outs, a["out"])
-    report[a["name"]] = {"load_s": load_s, "ms_per_call": ms, "launches_last_call": launches,
+    report[a["name"]] = {"load_s": load_s, "launches_last_call": launches,
                          "mods": sorted(m for m in sys.modules if m.startswith("fewshot"))}
 print(json.dumps(report))
 '''
-
-
-def _device_ms(fn, reps: int = 20) -> float:
-    """ms per call of the device work alone: the calls are queued behind a
-    sleeping kernel, so the events around them time the card, not the host's
-    dispatch."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)  # about 0.1 s at 1.98 GHz: time to queue every call
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _host_us(fn, reps: int = 200) -> float:
-    """Host microseconds per call to queue ``fn`` (no synchronization inside)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def _retime_ops(dev, tag):
-    """Phase 28: both kernels through their custom ops at the PERF table's
-    shapes: events around 20 op calls (the way every earlier phase times
-    them), the device work alone (calls queued behind a sleep) for the op and
-    for the bare launch without the op's dispatch, and the host's dispatch
-    time per op call."""
-    import torch
-
-    from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
-    from fewshot_vit_tpu_torch.kernels import sinkhorn as sk_mod
-
-    gen = torch.Generator(device=dev).manual_seed(28)
-    rows = {}
-    h, t, hd = 6, 100, 42
-    for b, dtype in ((EP_PER_BATCH * WAY * (SHOT + QUERY), torch.bfloat16),
-                     (PRE_TRAIN["batch_size"], torch.bfloat16),
-                     (PRE_TRAIN["batch_size"], torch.float32)):
-        qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
-        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
-        out = mhsa_mod._token_major(q)
-        op = lambda: mhsa_mod.fused_mhsa(q, k, v, hd ** -0.5)  # noqa: E731
-        bare = lambda: mhsa_mod._launch(q, k, v, out, hd ** -0.5, None)  # noqa: E731
-        rows[f"fused_mhsa ({b}*{h},{t},{hd}) {str(dtype).split('.')[1]}"] = {
-            "op_ms": _time_ms(op), "op_device_ms": _device_ms(op),
-            "launch_device_ms": _device_ms(bare), "op_host_us": _host_us(op),
-            "launch_host_us": _host_us(bare), "route": mhsa_mod.mhsa_route(q)}
-        del qkv, q, k, v, out
-    for b, n in ((3000, 13), (3000, 25), (160, 13), (WAY * QUERY * WAY, 13)):
-        cost, w1, w2 = _ot_problem(b, n, n, gen, dev)
-        out = torch.empty_like(cost)
-        op = lambda: sk_mod.sinkhorn_pallas(cost, w1, w2)  # noqa: E731
-        bare = lambda: sk_mod._launch(cost, w1, w2, out, 0.05, 100, None)  # noqa: E731
-        rows[f"sinkhorn_pallas ({b},{n},{n})"] = {
-            "op_ms": _time_ms(op), "op_device_ms": _device_ms(op),
-            "launch_device_ms": _device_ms(bare), "op_host_us": _host_us(op),
-            "launch_host_us": _host_us(bare), "route": sk_mod.sinkhorn_route(n, n)}
-    for name, r in rows.items():
-        r["pr8_ms"] = PR8_MS.get(name)
-        r["host_bound"] = r["op_ms"] > 1.2 * r["op_device_ms"]
-        print(f"timing {tag}: {name} through the op: {r['op_ms']:.4f} ms per call (events "
-              f"around 20 calls), device work {r['op_device_ms']:.4f} ms (bare launch "
-              f"{r['launch_device_ms']:.4f}), host dispatch {r['op_host_us']:.1f} us a call "
-              f"(bare launch {r['launch_host_us']:.1f})"
-              f"{', host-bound' if r['host_bound'] else ''}; {r['route']} route; PR 8: "
-              f"{r['pr8_ms']}")
-    return rows
 
 
 def _int8_products(dev, tag):
@@ -3012,8 +2642,8 @@ def _int8_cli(dev, tmp, pth, tag):
     """Phase 24b: ``eval.run --int8`` with and without ``--bf16`` beside
     ``--fold-bn`` in both dtypes, on the same 400 episodes from the phase-14
     ``.pth``; the CLI's accuracies equal in-process ``evaluate`` of the head
-    built as the CLI builds it, episodes/s from that run; 2 MHSA launches a
-    batch; |acc(int8) - acc(folded fp32)| < 0.08 (JAX's gate)."""
+    built as the CLI builds it; 2 MHSA launches a batch; |acc(int8) -
+    acc(folded fp32)| < 0.08 (JAX's gate)."""
     import numpy as np
     import torch
 
@@ -3054,20 +2684,15 @@ def _int8_cli(dev, tmp, pth, tag):
         head = eval_run.load_model_for_eval(Config(cfg), dtype, dev)
         head = (quantize_encoder_in_head(head, eval_run.calibration_images(ds, dev))
                 if "int8" in label else fold_encoder_in_head(head))
-        evaluate(head, ds, n_episodes=CLI_EP_PER_BATCH, seed=3, images_dev=images_dev,
-                 device=dev)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _, _, want = evaluate(head, ds, n_episodes=INT8_EPISODES, ep_per_batch=CLI_EP_PER_BATCH,
                               seed=DEFAULT_SEED, images_dev=images_dev, device=dev)
-        eps = INT8_EPISODES / (time.perf_counter() - t0)
         if not np.array_equal(accs, want):
             _fail(f"eval CLI {label}: the CLI and in-process evaluate disagree")
         accs_all[label] = accs
-        entry[label] = {"acc": float(accs.mean()), "episodes_per_s": eps, "cli_wall_s": wall}
+        entry[label] = {"acc": float(accs.mean()), "cli_wall_s": wall}
         print(f"int8 {tag}: eval CLI {' '.join(flags)}, {INT8_EPISODES} episodes: acc "
-              f"{accs.mean():.4f}, in-process {eps:.1f} episodes/s at {CLI_EP_PER_BATCH} a batch, "
-              f"CLI wall {wall:.2f} s; launches {counts[f'eval_cli_{label}']}")
+              f"{accs.mean():.4f}, equal to in-process evaluate's, CLI wall {wall:.2f} s; "
+              f"launches {counts[f'eval_cli_{label}']}")
         del head
     for label in ("int8_bf16", "int8_fp32"):
         d = abs(entry[label]["acc"] - entry["fold_fp32"]["acc"])
@@ -3166,8 +2791,7 @@ def _export_artifacts(dev, tmp, pth, tag):
                   [(enc_in,)] if name.startswith("encoder") else [(emd_in[int(name[4])],)])
         in_path = os.path.join(tmp, f"{name}_in.pt")
         torch.save([[t.cpu() for t in batch] for batch in inputs], in_path)
-        # every call but the 5-shot one's (SFC's steps) follows a warm call
-        spec.append({"name": name, "path": out, "inputs": in_path, "warm": name != "emd_5shot",
+        spec.append({"name": name, "path": out, "inputs": in_path,
                      "move": name.endswith("cpu_cuda"),
                      "out": os.path.join(tmp, f"{name}_out.pt")})
         del ep
@@ -3211,13 +2835,7 @@ def _export_artifacts(dev, tmp, pth, tag):
             fn = make_emd_episode_fn(emd, WAY, s, QUERY, make_patch_fn("grid", [2, 3], 2.0, 80,
                                                                        False),
                                      ds.mean, ds.std, sfc=s > 1, sfc_kw=sfc_kw, seed=0)
-            _zero_counts(fused_mhsa, sinkhorn_pallas)
-            t0 = time.perf_counter()
             want[f"emd_{s}shot"] = [fn(emd_in[s], list(range(EXPORT_EMD_EPB[s]))).cpu()]
-            torch.cuda.synchronize()
-            entry[f"emd_{s}shot"]["in_process_ms"] = (time.perf_counter() - t0) * 1e3
-            print(f"export {tag}: the in-process EMD {s}-shot forward of "
-                  f"{EXPORT_EMD_EPB[s]} episodes: {entry[f'emd_{s}shot']['in_process_ms']:.1f} ms")
             del emd
     counts, failed = {}, []
     for name, _, _ in arts:
@@ -3226,7 +2844,7 @@ def _export_artifacts(dev, tmp, pth, tag):
         g, w = torch.cat(got), torch.cat(want[name])
         err = (g - w).abs().max().item()
         e = entry[name]
-        e.update({"ms_per_call": r["ms_per_call"], "load_s": r["load_s"], "max_abs_d": err,
+        e.update({"load_s": r["load_s"], "max_abs_d": err,
                   "launches_per_call": r["launches_last_call"]})
         n_mhsa = sum(r["launches_last_call"]["fused_mhsa"].values())
         n_sk = sum(r["launches_last_call"]["sinkhorn_pallas"].values())
@@ -3248,11 +2866,11 @@ def _export_artifacts(dev, tmp, pth, tag):
             ok = err <= 1e-4
         print(f"export {tag}: {name}: {e['export_s']:.1f} s to export, {e['mb']:.1f} MB, "
               f"{e['nodes']} graph nodes ({e['nodes_with_scan_bodies']} with scan bodies); "
-              f"in a fresh process ms per call {[round(x, 2) for x in e['ms_per_call']]}, "
-              f"launches a call {r['launches_last_call']}; against the in-process forward "
-              f"max|d|={err:.3e}" + (f", episodes differing {e['episodes_differing']:.4f}, "
-                                     f"mean|dacc| {e['mean_abs_d_acc']:.5f}"
-                                     if "episodes_differing" in e else " (tol 1e-4)")
+              f"in a fresh process launches a call {r['launches_last_call']}; against the "
+              f"in-process forward max|d|={err:.3e}"
+              + (f", episodes differing {e['episodes_differing']:.4f}, "
+                 f"mean|dacc| {e['mean_abs_d_acc']:.5f}"
+                 if "episodes_differing" in e else " (tol 1e-4)")
               + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"artifact {name} disagrees with the in-process forward")
@@ -3352,28 +2970,6 @@ def _counted(fn):
         "sinkhorn_pallas": dict(sinkhorn_pallas.route_launches)}
 
 
-def _mesh_eval_timing(dev, pth, mesh):
-    """Episodes/s of ``evaluate`` (``--fold-bn --bf16``, as the CLI builds
-    the head) over ``MESH_EPISODES``, after a warm batch."""
-    import torch
-
-    from fewshot_vit_tpu_torch.core.config import Config
-    from fewshot_vit_tpu_torch.core.registry import datasets
-    from fewshot_vit_tpu_torch.data.staging import upload_images
-    from fewshot_vit_tpu_torch.eval import run as eval_run
-    from fewshot_vit_tpu_torch.eval.episodic import evaluate
-    from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
-
-    cfg = _mesh_eval_cfg(pth)
-    ds = datasets.make("synthetic", **cfg["dataset_args"])
-    images = upload_images(ds.images, dev)
-    head = fold_encoder_in_head(eval_run.load_model_for_eval(Config(cfg), torch.bfloat16, dev))
-    kw = dict(ep_per_batch=CLI_EP_PER_BATCH, images_dev=images, device=dev, mesh=mesh)
-    evaluate(head, ds, n_episodes=CLI_EP_PER_BATCH, seed=3, **kw)
-    _, secs, _ = _counted(lambda: evaluate(head, ds, n_episodes=MESH_EPISODES, seed=4, **kw))
-    return MESH_EPISODES / secs
-
-
 def _mesh_sund_step(dev, mesh):
     """One ``meta_tune_emd`` step at ``SUND_TRAIN``'s geometry (fp32, ``bs``
     2, ``sinkhorn_pallas``) from seeded weights: (state dict before, after,
@@ -3412,11 +3008,8 @@ def _mesh_sund_step(dev, mesh):
 def _mesh_sun_step(dev, mesh):
     """One SUN step (``train.loop.make_sun_epoch``) of batch 512, the dual
     view, drop-path 0.5, an fp32 teacher, SGD, seeded weights: (state dict
-    before, after (the full layout), loss, seconds, launches, ``again``, the
-    student's column-parallel layers under a ``model`` axis). ``again(clocked)``
-    runs one more step of the same batch and returns (seconds, collective
-    seconds, collectives): a warm step, with host clocks around each
-    collective (synchronized) when ``clocked``."""
+    before, after (the full layout), loss, seconds, launches, the student's
+    column-parallel layers under a ``model`` axis)."""
     import torch
 
     from fewshot_vit_tpu_torch.core.config import Config
@@ -3445,38 +3038,10 @@ def _mesh_sun_step(dev, mesh):
     images = torch.from_numpy(mini.images).to(dev)
     labels = torch.from_numpy(mini.labels.astype("int64")).to(dev)
     idx = _steps_idx(len(mini), 1, 1, dev)
-    plain = (pmesh.reduce_sum_, pmesh._gather_flat)
-    spent = [0.0, 0]
-
-    def clocked(fn):
-        def timed(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spent[0] += time.perf_counter() - t0
-            spent[1] += 1
-            return out
-        return timed
-
-    def step(clock):
-        spent[:] = [0.0, 0]
-        if clock:
-            pmesh.reduce_sum_, pmesh._gather_flat = map(clocked, plain)
-        try:
-            with pmesh.use_mesh(mesh):
-                return _counted(lambda: epoch(state, teacher, images, labels, idx, (0, 1)))
-        finally:
-            pmesh.reduce_sum_, pmesh._gather_flat = plain
-
-    m, secs, counts = step(False)
+    with pmesh.use_mesh(mesh):
+        m, secs, counts = _counted(lambda: epoch(state, teacher, images, labels, idx, (0, 1)))
     after = {k: v.detach().clone() for k, v in state.variables.items()}
-
-    def again(clock):
-        _, secs, _ = step(clock)
-        return secs, spent[0], spent[1]
-
-    return start, after, float(m["loss"][0]), secs, counts, again, sliced
+    return start, after, float(m["loss"][0]), secs, counts, sliced
 
 
 def _gloo_cuda_probe(dev):
@@ -3540,8 +3105,7 @@ def _mesh_rank(job_dir) -> int:
         accs, secs, counts = _counted(lambda: eval_run.main(
             ["--config", spec["eval_cfg"], "--episodes", str(MESH_EPISODES), "--fold-bn",
              "--bf16"] + mesh2))
-        out["eval_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts,
-                            "episodes_per_s": _mesh_eval_timing(dev, spec["pth"], mesh)}
+        out["eval_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts}
         accs, secs, counts = _counted(lambda: run_emd.main(
             ["--config", spec["emd_cfg"], "--shot", "1", "--episodes", str(MESH_EMD_EPISODES),
              "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16"] + mesh2))
@@ -3549,17 +3113,12 @@ def _mesh_rank(job_dir) -> int:
         _, sd, loss, secs, counts = _mesh_sund_step(dev, mesh)
         save(sd, "sund.pt")
         out["sund_step"] = {"loss": loss, "s": secs, "launches": counts}
-        outs, ms, counts = _serve_calls(dev, spec["artifact"], spec["serve_inputs"], mesh)
+        outs, counts = _serve_calls(dev, spec["artifact"], spec["serve_inputs"], mesh)
         save(torch.cat([o.cpu() for o in outs]), "serve.pt")
-        out["serve"] = {"ms_per_call": ms, "launches": counts}
-    _, sd, loss, secs, counts, again, _ = _mesh_sun_step(dev, mesh)
+        out["serve"] = {"launches": counts}
+    _, sd, loss, secs, counts, _ = _mesh_sun_step(dev, mesh)
     save(sd, "sun.pt")
     out["sun_step"] = {"loss": loss, "s": secs, "launches": counts}
-    if spec["data"] > 1:  # the NCCL rank shares the card with the one-rank runs: not timed
-        warm_s = again(False)[0]
-        clocked_s, coll_s, n_coll = again(True)
-        out["sun_step"].update({"warm_s": warm_s, "clocked_s": clocked_s,
-                                "collectives_s": coll_s, "collectives": n_coll})
     out["rank_s"] = time.perf_counter() - t_start
     with open(os.path.join(job_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -3570,8 +3129,7 @@ def _mesh_rank(job_dir) -> int:
 
 def _serve_calls(dev, path, inputs, mesh):
     """``eval.export.serve`` of the artifact at ``path`` over the batches
-    saved at ``inputs``, after one warm call: (outputs, ms per call, the
-    last call's launches)."""
+    saved at ``inputs``: (outputs, the last call's launches)."""
     import torch
 
     from fewshot_vit_tpu_torch.eval import export as export_mod
@@ -3579,9 +3137,8 @@ def _serve_calls(dev, path, inputs, mesh):
     ep = export_mod.load_exported(path, device=str(dev), mesh=mesh)
     batches = [[t.to(dev) for t in b] for b in torch.load(inputs)]
     with torch.no_grad():
-        export_mod.serve(ep, *batches[0], mesh=mesh)
         calls = [_counted(lambda: export_mod.serve(ep, *b, mesh=mesh)) for b in batches]
-    return [c[0] for c in calls], [c[1] * 1e3 for c in calls], calls[-1][2]
+    return [c[0] for c in calls], calls[-1][2]
 
 
 def _launch_group(job_dir, nproc, spec):
@@ -3684,8 +3241,7 @@ def _slice10(dev, tmp, pth, tag):
     ``eval.run_emd --mesh-data 2``, a SUN-D step (one episode a rank), the
     2-shard scorer artifact and a SUN step (256 images a rank). Each is held
     to this process's one-rank run of the same work; launches are counted
-    in each rank; the one-rank times are taken with nothing else on the
-    card."""
+    in each rank."""
     import torch
 
     from fewshot_vit_tpu_torch.eval import export as export_mod
@@ -3706,8 +3262,7 @@ def _slice10(dev, tmp, pth, tag):
             "serve_inputs": os.path.join(tmp, "scorer_fp32_in.pt"), "device": dev.type}
     gloo_dir, nccl_dir = os.path.join(tmp, "mesh_gloo"), os.path.join(tmp, "mesh_nccl")
     # the NCCL rank runs while this process makes the one-rank runs that are
-    # compared, not timed; then this process times evaluate, a warm SUN step
-    # and the unsharded scorer alone on the card
+    # compared
     t0 = time.perf_counter()
     proc = _launch_group(nccl_dir, 1, {**spec, "data": 1})
     one = {}
@@ -3720,14 +3275,9 @@ def _slice10(dev, tmp, pth, tag):
         "--ep-per-batch", str(CLI_EP_PER_BATCH), "--bf16", "--device", str(dev)]))
     one["run_emd_bf16"] = {"accs": accs.tolist(), "s": secs, "launches": counts}
     sund_start, sund_sd, sund_loss, _, _ = _mesh_sund_step(dev, None)
-    sun_start, sun_sd, sun_loss, sun_s, _, sun_again, _ = _mesh_sun_step(dev, None)
+    sun_start, sun_sd, sun_loss, sun_s, _, _ = _mesh_sun_step(dev, None)
     nccl, _ = _wait_group(proc, nccl_dir, 1, "the NCCL rank")
     nccl_s = time.perf_counter() - t0
-    one["eval_bf16"]["episodes_per_s"] = _mesh_eval_timing(dev, pth, None)
-    sun_warm_s = sun_again(False)[0]
-    _, one_serve_ms, _ = _serve_calls(dev, os.path.join(tmp, "scorer_fp32.pt2"),
-                                      spec["serve_inputs"], None)
-    del sun_again
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks, text = _wait_group(_launch_group(gloo_dir, 2, {**spec, "data": 2}), gloo_dir, 2,
@@ -3778,13 +3328,6 @@ def _slice10(dev, tmp, pth, tag):
                                 ranks[0][name]["accs"], one[name]["accs"])
         entry[name].update({"two_rank_cli_s": ranks[0][name]["s"], "one_rank_cli_s": one[name]["s"]})
     entry["eval_bf16"]["identical"] = ranks[0]["eval_bf16"]["accs"] == one["eval_bf16"]["accs"]
-    entry["eval_bf16"]["episodes_per_s"] = {
-        "two_gloo_ranks": [r["eval_bf16"]["episodes_per_s"] for r in ranks],
-        "one_rank": one["eval_bf16"]["episodes_per_s"]}
-    print(f"timing {tag}: evaluate --fold-bn bf16, {MESH_EPISODES} episodes, 8 a batch: two gloo "
-          f"ranks on one card {entry['eval_bf16']['episodes_per_s']['two_gloo_ranks']} "
-          f"episodes/s, one rank {one['eval_bf16']['episodes_per_s']:.1f} episodes/s (two ranks "
-          f"sharing a card measure correctness, not scaling)")
     load = lambda name, d: torch.load(os.path.join(d, name), map_location="cpu")
     cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
     entry["sund_step"] = _hold_state(f"mesh {tag}: SUN-D step, two gloo ranks vs one rank",
@@ -3797,28 +3340,14 @@ def _slice10(dev, tmp, pth, tag):
                                          f"{{data: 1}} vs no mesh", load("sun.pt", nccl_dir),
                                          cpu(sun_sd), sun_start, nccl[0]["sun_step"]["loss"],
                                          sun_loss)
-    s2 = ranks[0]["sun_step"]
-    entry["sun_step"].update({k: s2[k] for k in ("s", "warm_s", "clocked_s", "collectives_s",
-                                                  "collectives")})
-    entry["sun_step"].update({"one_rank_s": sun_s, "one_rank_warm_s": sun_warm_s})
+    entry["sun_step"].update({"s": ranks[0]["sun_step"]["s"], "one_rank_s": sun_s})
     entry["sun_step_nccl"]["s"] = nccl[0]["sun_step"]["s"]
-    print(f"timing {tag}: SUN step of 512 images, the second (warm) step: two gloo ranks "
-          f"{s2['warm_s']:.3f} s, one rank with no mesh, alone on the card, {sun_warm_s:.3f} s; "
-          f"a third step of the two ranks with host clocks around each of its "
-          f"{s2['collectives']} collectives (synchronized): {s2['clocked_s']:.3f} s, "
-          f"{s2['collectives_s']:.3f} s of it in collectives; first steps, warm-up included: "
-          f"two gloo ranks {s2['s']:.3f} s, one rank {sun_s:.3f} s, one NCCL rank "
-          f"{nccl[0]['sun_step']['s']:.3f} s (beside the one-rank runs)")
     got = load("serve.pt", gloo_dir)
     want = torch.cat(torch.load(os.path.join(tmp, "scorer_fp32_out.pt")))
     err = (got - want).abs().max().item()
-    entry["serve"] = {"max_abs_d": err, "ms_per_call_rank0": ranks[0]["serve"]["ms_per_call"],
-                      "ms_per_call_unsharded_one_rank": one_serve_ms}
+    entry["serve"] = {"max_abs_d": err}
     print(f"mesh {tag}: the 2-shard scorer served by two gloo ranks against the unsharded "
-          f"artifact: max|d|={err:.3e} (tol 1e-4, the fp32 artifact rule); warm ms per call, "
-          f"rank 0 of two sharing the card "
-          f"{[round(x, 2) for x in ranks[0]['serve']['ms_per_call']]}, the unsharded artifact "
-          f"served by one process alone on the card {[round(x, 2) for x in one_serve_ms]}")
+          f"artifact: max|d|={err:.3e} (tol 1e-4, the fp32 artifact rule)")
     if not err <= 1e-4:
         _fail("the 2-shard scorer disagrees with the unsharded artifact")
     entry["gloo_cuda_probe"] = ranks[0]["gloo_cuda_probe"]
@@ -3951,18 +3480,14 @@ def _visformer_small(dev, tag):
             torch.backends.cuda.matmul.allow_tf32 = allow
 
     def kernel_run(head, dname):
-        logits(head, 1)  # warm this head's shapes
         _zero_counts(fused_mhsa, sinkhorn_pallas)
-        t1 = time.perf_counter()
         lg = logits(head)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t1
         counts = _expect_counts(f"visformer_small {dname}", "general", per * len(idx))
-        return lg, secs, counts["fused_mhsa"]
+        return lg, counts["fused_mhsa"]
 
     out = {"episodes": SMALL224_EPISODES}
     kernel = head_for(f32, True)
-    lg_k, secs, launches = kernel_run(kernel, "float32")
+    lg_k, launches = kernel_run(kernel, "float32")
     lg_p = logits(head_for(f32, False))
     real = visformer.attention_core
     try:
@@ -3977,7 +3502,7 @@ def _visformer_small(dev, tag):
     d_plain = (lg_p[:n_e] - lg_e).abs().max().item()
     d_control = (lg_c - lg_e).abs().max().item()
     allowed = 2 * d_plain + 1e-6
-    res = {"episodes_per_s": SMALL224_EPISODES / secs, "acc": float(accs(lg_k).mean()),
+    res = {"acc": float(accs(lg_k).mean()),
            "launches": launches, "kernel_vs_exact_max_abs_d_logits": d_exact,
            "plain_vs_exact_max_abs_d_logits": d_plain, "allowed_max_abs_d_logits": allowed,
            "tf32_control_vs_exact_max_abs_d_logits": d_control,
@@ -3985,7 +3510,7 @@ def _visformer_small(dev, tag):
            "kernel_vs_plain": pair(lg_k, lg_p), "kernel_vs_exact": pair(lg_k[:n_e], lg_e),
            "plain_vs_exact": pair(lg_p[:n_e], lg_e), "tf32_control_vs_exact": pair(lg_c, lg_e)}
     print(f"visformer_small {tag} fp32: {SMALL224_EPISODES} episodes at 224 px, "
-          f"{res['episodes_per_s']:.2f} episodes/s, acc {res['acc']:.4f}, launches {launches}; "
+          f"acc {res['acc']:.4f}, launches {launches}; "
           f"logits max|d| against the exact path: kernel {d_exact:.3e}, plain {d_plain:.3e} "
           f"(allowed {allowed:.3e}), one-TF32 control {d_control:.3e} (must exceed it), "
           f"kernel vs plain {res['kernel_vs_plain_max_abs_d_logits']:.3e}; episodes differing, "
@@ -4002,18 +3527,18 @@ def _visformer_small(dev, tag):
     del kernel
 
     kernel = head_for(bf16, True)
-    lg_k16, secs, launches16 = kernel_run(kernel, "bfloat16")
+    lg_k16, launches16 = kernel_run(kernel, "bfloat16")
     lg_p16 = logits(head_for(bf16, False))
     d_plain = (lg_p16 - lg_p).abs().max().item()
     allowed = 2 * d_plain + 1e-2
-    res = {"episodes_per_s": SMALL224_EPISODES / secs, "acc": float(accs(lg_k16).mean()),
-           "launches": launches16, "plain_bf16_vs_fp32_max_abs_d_logits": d_plain,
+    res = {"acc": float(accs(lg_k16).mean()), "launches": launches16,
+           "plain_bf16_vs_fp32_max_abs_d_logits": d_plain,
            "general_vs_fp32_max_abs_d_logits": (lg_k16 - lg_p).abs().max().item(),
            "general_vs_plain": pair(lg_k16, lg_p16), "plain_bf16_vs_fp32": pair(lg_p16, lg_p)}
-    print(f"visformer_small {tag} bf16: {res['episodes_per_s']:.2f} episodes/s, acc "
-          f"{res['acc']:.4f}, launches {launches16}; logits max|d| against the fp32 plain path: "
-          f"general {res['general_vs_fp32_max_abs_d_logits']:.3e}, plain bf16 {d_plain:.3e} "
-          f"(allowed {allowed:.3e}); episodes differing, general vs plain bf16 "
+    print(f"visformer_small {tag} bf16: acc {res['acc']:.4f}, launches {launches16}; logits "
+          f"max|d| against the fp32 plain path: general "
+          f"{res['general_vs_fp32_max_abs_d_logits']:.3e}, plain bf16 {d_plain:.3e} (allowed "
+          f"{allowed:.3e}); episodes differing, general vs plain bf16 "
           f"{res['general_vs_plain']}, plain bf16 vs fp32 {res['plain_bf16_vs_fp32']}")
     # the bf16 accuracy rule: any two bf16 attention paths may differ on the
     # share where plain bf16 and plain fp32 differ, plus 1%
@@ -4047,25 +3572,20 @@ def _bench_phase(dev, tag):
     for int8 in (False, True):
         (result, accs), secs, counts = _counted(lambda: bench.run(int8=int8, device=dev))
         print(json.dumps(result))
-        print(f"bench {tag}: {result['metric']} = {result['value']} {result['unit']}, "
-              f"vs_baseline {result['vs_baseline']} ({secs:.1f} s with the split, the fold"
-              f"{' and the calibration' if int8 else ''} and the warm pass); acc "
+        print(f"bench {tag}: {secs:.1f} s with the split, the fold"
+              f"{' and the calibration' if int8 else ''} and the warm pass; acc "
               f"{accs.mean():.4f}")
         label = "bench_int8" if int8 else "bench"
         launches[label] = _check_launches(label, counts, "tensor_core",
                                           per * n_batches + (per if int8 else 0))
-        out[label] = {**result, "s": secs, "acc": float(accs.mean())}
+        out[label] = {"s": secs, "acc": float(accs.mean())}
         if not int8:
             accs_tc = accs
     ds = bench.bench_split()
     with mhsa_mod.force_route("general"):
-        general, accs_gen = bench.run(device=dev, dataset=ds)
-    plain, accs_plain = bench.run(device=dev, dataset=ds,
-                                  make_head=lambda: bench.bench_head(use_pallas_attn=False))
-    out["general_route_value"], out["plain_value"] = general["value"], plain["value"]
-    print(f"timing {tag}: the bench's protocol, episodes/s: tensor-core route "
-          f"{out['bench']['value']}, general route forced {general['value']}, plain attention "
-          f"{plain['value']}, int8 {out['bench_int8']['value']}")
+        _, accs_gen = bench.run(device=dev, dataset=ds)
+    _, accs_plain = bench.run(device=dev, dataset=ds,
+                              make_head=lambda: bench.bench_head(use_pallas_attn=False))
     out["bf16_rule"] = _bf16_rule(f"bench {tag}: the timed pass", accs_tc, accs_gen, accs_plain)
     return out, launches
 
@@ -4174,7 +3694,7 @@ def _graft_entry_phase(dev, tag, dryrun):
     from fewshot_vit_tpu_torch import graft_entry
 
     fn, (module, x_shot, x_query) = graft_entry.entry()
-    logits, secs, counts = _counted(lambda: fn(module, x_shot, x_query))
+    logits, _, counts = _counted(lambda: fn(module, x_shot, x_query))
     if tuple(logits.shape) != (1, 75, 5) or not torch.isfinite(logits).all():
         _fail(f"graft_entry.entry: logits {tuple(logits.shape)}, finite "
               f"{bool(torch.isfinite(logits).all())}")
@@ -4189,11 +3709,10 @@ def _graft_entry_phase(dev, tag, dryrun):
         text = f.read()
     ok = [ln for ln in text.splitlines() if ln.startswith("dryrun_multichip ok")]
     print("\n".join(ok))
-    print(f"graft entry {tag}: entry forward {secs * 1e3:.1f} ms (first call); "
-          f"dryrun_multichip(2) on {dev} exit {rc}, beside phases 33-34")
+    print(f"graft entry {tag}: dryrun_multichip(2) on {dev} exit {rc}, beside phases 33-34")
     if rc != 0 or len(ok) != 5:
         _fail(f"dryrun_multichip(2) exited {rc} with {len(ok)} ok lines:\n{text[-3000:]}")
-    return {"entry_ms": secs * 1e3, "ok_lines": ok}, launches
+    return {"ok_lines": ok}, launches
 
 
 def _mesh_pretrain_step(dev, mesh):
@@ -4263,8 +3782,7 @@ def _model_axis(dev, tag, group):
     pretrain step)."""
     import torch
 
-    sun_start, sun_sd, sun_loss, sun_s, _, again, _ = _mesh_sun_step(dev, None)
-    del again
+    sun_start, sun_sd, sun_loss, sun_s, _, _ = _mesh_sun_step(dev, None)
     pre_start, pre_sd, pre_loss, pre_s, pre_counts, _ = _mesh_pretrain_step(dev, None)
     torch.cuda.empty_cache()
     proc, job = group
@@ -4294,10 +3812,6 @@ def _model_axis(dev, tag, group):
             load(f"{name}.pt"), cpu(sd), start, ranks[0][name]["loss"], loss)
         entry[name].update({"s_ranks": [r[name]["s"] for r in ranks], "one_rank_s": one_s,
                             "sliced": ranks[0][name]["sliced"]})
-    print(f"model axis {tag}: first steps, warm-up included: SUN two ranks "
-          f"{entry['sun_step']['s_ranks']} s, one rank {sun_s:.3f} s; pretrain two ranks "
-          f"{entry['pretrain_step']['s_ranks']} s, one rank {pre_s:.3f} s (the ranks ran beside "
-          f"phases 33-34: they measure correctness, not speed)")
     return entry, launches
 
 
@@ -4348,7 +3862,6 @@ def _slice11(dev, tmp, tag):
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--profile", default=None, help="write a profiler table here")
     p.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.mesh_rank:  # one rank of a slice-10 group
@@ -4368,11 +3881,7 @@ def main() -> int:
     from fewshot_vit_tpu_torch.heads import meta_baseline as _heads  # noqa: F401
     from fewshot_vit_tpu_torch.kernels import build
     from fewshot_vit_tpu_torch.kernels import attention as mhsa_mod
-    from fewshot_vit_tpu_torch.kernels.attention import (
-        attention_core,
-        fused_mhsa,
-        fused_mhsa_reference,
-    )
+    from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
     from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
     from fewshot_vit_tpu_torch.models.fold import fold_encoder_in_head
 
@@ -4466,131 +3975,48 @@ def main() -> int:
     _, _, accs_p = run(plain_head, N_EPISODES, indices=idx)
     _bf16_rule("main path", accs_k, accs_o, accs_p)
 
-    # phase 7, SUN-M: timings, in turns; "old" forces the general route
-    eps = {"fused": [], "old": [], "plain": []}
-    for which in ("fused", "old", "plain", "plain", "old", "fused"):
-        head = plain_head if which == "plain" else main_head
-        with mhsa_mod.force_route("general" if which == "old" else None):
-            run(head, EP_PER_BATCH, seed=3)  # warm this head's shapes
-            t0 = time.perf_counter()
-            run(head, N_TIMED, seed=2)
-            eps[which].append(N_TIMED / (time.perf_counter() - t0))
-    print(f"timing {tag}: main path bf16 episodes/s, fused-kernel attention: "
-          f"{eps['fused']}; plain attention: {eps['plain']}; fused-kernel attention with the "
-          f"general route forced: {eps['old']} "
-          f"({N_TIMED} episodes at ep_per_batch {EP_PER_BATCH})")
-
-    # every route of fused_mhsa that takes the shape, in turns with SDPA: the
-    # general route, and the tensor-core route where it applies
-    kernels, sun_teacher, mhsa_rows = [], {}, []
-    f32, bf16 = torch.float32, torch.bfloat16
-    h = 6
-    for shape, b, t, hd, dtype in (
-            ("stage2", b_main, 100, 42, bf16), ("stage2", b_main, 100, 42, f32),
-            ("sun teacher", PRE_TRAIN["batch_size"], 100, 42, f32),
-            ("sun teacher", PRE_TRAIN["batch_size"], 100, 42, bf16),
-            ("eval cli", CLI_EP_PER_BATCH * WAY * (SHOT + QUERY), 100, 42, f32),
-            ("small stage 3", 32, 196, 128, bf16), ("small stage 3", 32, 196, 128, f32),
-            # 20 times the work: the device's time, which the launch's host
-            # time hides at batch 32
-            ("small stage 3 x20", 640, 196, 128, bf16), ("small stage 3 x20", 640, 196, 128, f32)):
-        qkv = torch.randn(b, t, 3, h, hd, generator=gen, device=dev).to(dtype)
-        q, k, v = qkv.unbind(2)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        scale = hd ** -0.5
-        route = mhsa_mod.mhsa_route(qt)
-        order = ("general", *(("tensor_core",) if route == "tensor_core" else ()), "sdpa")
-        times = {which: [] for which in order}
-        for which in order + order[::-1]:
-            if which == "sdpa":
-                times[which].append(_time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, scale=scale)))
-            else:
-                with mhsa_mod.force_route(which):
-                    times[which].append(_time_ms(lambda: attention_core(q, k, v, scale)))
-        ms_of = {which: sum(x) / 2 for which, x in times.items()}
-        ms, general_ms, lib_ms = (ms_of[w] for w in (route, "general", "sdpa"))
-        plain_ms = _time_ms(lambda: fused_mhsa_reference(qt, kt, vt, scale))
-        # fp32: the lower of the CUDA-core and the 3xTF32 bound, the old one beside it
-        cuda_core_ms = _bound(b, h, t, hd, dtype)[0]
-        bound_ms, bound_by = min(_bound(b, h, t, hd, dtype),
-                                 _bound(b, h, t, hd, dtype, PEAK_3XTF32 if dtype == f32 else None))
-        dname = str(dtype).split(".")[1]
-        print(f"timing {tag}: fused_mhsa {shape} ({b},{h},{t},{hd}) {dtype}: kernel {ms:.4f} ms "
-              f"({route} route), general {general_ms:.4f} ms "
-              f"({times}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})"
-              + (f", CUDA-core bound {cuda_core_ms:.4f} ms" if dtype == f32 else "")
-              + f"; kernel/bound {ms / bound_ms:.2f}, general/bound {general_ms / bound_ms:.2f}")
-        row = {"case": shape, "shape": [b * h, t, hd], "dtype": dname, "kernel_route": route,
-               "ms": ms, "general_ms": general_ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-               "max_abs_err": errs[(shape, str(dtype))]}
-        if dtype == f32:
-            row["cuda_core_bound_ms"] = cuda_core_ms
-            row["float64_max_abs_err"] = errs[(shape, "float64")]
-        mhsa_rows.append(row)
-        if shape == "sun teacher":  # the SUN teacher's and pretrain validation's shape
-            sun_teacher[dname] = {
-                "kernel_route": route, "max_abs_err": errs[(shape, str(dtype))], "ms": ms,
-                "general_route_ms": general_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
-        elif shape == "stage2" and dtype == bf16:  # the main path's
-            if not (ms < lib_ms and ms < general_ms):
-                _fail(f"the tensor-core fused_mhsa ({ms:.3f} ms) is not faster than sdpa "
-                      f"({lib_ms:.3f} ms) and the general route ({general_ms:.3f} ms)")
-            kernels.append({
-                "name": "fused_mhsa", "kernel": "mhsa_tc_kernel", "route": "cuda",
-                "source": "fewshot_vit_tpu_torch/csrc/mhsa.cu",
-                "replaces": "fewshot_vit_tpu/kernels/attention.py:54",
-                "launches": launches, "kernel_route": route, "route_launches": routes,
-                "max_abs_err": errs[("stage2", str(dtype))],
-                "ms": ms, "general_route_ms": general_ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms,
-            })
-        del qkv, q, k, v, qt, kt, vt
-    kernels[0]["sun_teacher"] = {"shape": [PRE_TRAIN["batch_size"] * h, 100, 42], **sun_teacher}
+    # the kernels' JSON entries: phase 4's max|d| per case, launches by path below
+    mhsa_rows = []
+    for (name, dtype), err in errs.items():
+        if dtype != "float64":
+            row = {"case": name, "dtype": dtype.split(".")[1], "max_abs_err": err}
+            if dtype == "torch.float32":
+                row["float64_max_abs_err"] = errs[(name, "float64")]
+            mhsa_rows.append(row)
+    teacher_shape = [PRE_TRAIN["batch_size"] * 6, 100, 42]
+    kernels = [{
+        "name": "fused_mhsa", "kernel": "mhsa_tc_kernel", "route": "cuda",
+        "source": "fewshot_vit_tpu_torch/csrc/mhsa.cu",
+        "replaces": "fewshot_vit_tpu/kernels/attention.py:54",
+        "launches": launches, "kernel_route": "tensor_core", "route_launches": routes,
+        "max_abs_err": errs[("stage2", "torch.bfloat16")],
+        "sun_teacher": {"shape": teacher_shape,
+                        "max_abs_err": errs[("sun teacher", "torch.bfloat16")]},
+    }]
     # phase 37: the general route's own path
     general, general_launches = _visformer_small(dev, tag)
     # its headline row: the fp32 SUN teacher's shape, which the route serves
-    head_row = next(r for r in mhsa_rows if r["case"] == "sun teacher" and r["dtype"] == "float32")
     kernels.append({
         "name": "fused_mhsa", "kernel": "mhsa_general_kernel", "route": "cuda",
         "source": "fewshot_vit_tpu_torch/csrc/mhsa.cu",
         "replaces": "fewshot_vit_tpu/kernels/attention.py:54",
         "launches": general_launches["general"], "kernel_route": "general",
         "route_launches": general_launches, "launches_path": "phase 37, visformer_small",
-        "max_abs_err": head_row["max_abs_err"], "shape": head_row["shape"], "ms": head_row["ms"],
-        "plain_ms": head_row["plain_ms"],
-        "bound_ms": head_row["bound_ms"], "bound_by": head_row["bound_by"],
-        "cuda_core_bound_ms": head_row["cuda_core_bound_ms"],
-        "library_ms": head_row["library_ms"], "rows": mhsa_rows, "visformer_small": general,
+        "max_abs_err": errs[("sun teacher", "torch.float32")], "shape": teacher_shape,
+        "rows": mhsa_rows, "visformer_small": general,
     })
-
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        os.makedirs(args.profile, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(main_head, EP_PER_BATCH, seed=4)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-        with open(os.path.join(args.profile, "profile_main_path.txt"), "w") as f:
-            f.write(f"{card}\n{table}\n")
-        print("\n".join(table.splitlines()[:25]))
-    del main_head, plain_head, head
+    del main_head, plain_head
     torch.cuda.empty_cache()
-    lap("1-5 and 7 (SUN-M)")
+    lap("1-5 and 37 (SUN-M)")
 
-    sinkhorn = _run_sund(dev, ds, images_dev, tag, gen, args.profile, card)
+    sinkhorn = _run_sund(dev, ds, images_dev)
     kernels.append({**sinkhorn, "kernel": "sinkhorn_packed_kernel",
                     "max_abs_err": sinkhorn_errs["grid"],
                     "max_abs_err_train_shape": sinkhorn_errs["train episode"]})
     torch.cuda.empty_cache()
-    lap("6-7 (SUN-D)")
+    lap("6 (SUN-D)")
     # phase 38: the Sinkhorn's general route on its own paths
-    kernels.append(_sinkhorn_general_paths(dev, ds, images_dev, tag, gen, sinkhorn_errs))
+    kernels.append(_sinkhorn_general_paths(dev, ds, images_dev, tag, sinkhorn_errs))
     lap("38 (the general Sinkhorn route)")
     # phase 39: Swin's window attention at Swin-T's stages
     kernels.append(_window_attention(dev, tag, gen))
@@ -4598,9 +4024,9 @@ def main() -> int:
 
     # phases 8-10: the two trainers
     val_ds = datasets.make("synthetic", n_classes=20, n_per_class=40, image_size=80, seed=3)
-    training, train_launches = _train_sund(dev, ds, images_dev, val_ds, tag, args.profile, card)
+    training, train_launches = _train_sund(dev, ds, images_dev, val_ds)
     torch.cuda.empty_cache()
-    sunm, sunm_launches = _train_sunm(dev, ds, images_dev, val_ds, tag, args.profile, card)
+    sunm, sunm_launches = _train_sunm(dev, ds, images_dev, val_ds)
     training.update(sunm)
     train_launches.update(sunm_launches)
     torch.cuda.empty_cache()
@@ -4622,13 +4048,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "pretrain")
         pre, pre_counts = _train_pretrain(dev, mini, mini_dev, mini_labels, pre_val, ds,
-                                          images_dev, tag, args.profile, card, ckpt)
-        sun, sun_counts = _train_sun(dev, mini, mini_dev, mini_labels, tag, args.profile, card,
-                                     ckpt)
+                                          images_dev, ckpt)
+        sun, sun_counts = _train_sun(dev, mini, mini_dev, mini_labels, ckpt)
         lap("11-13 (pretrain, SUN)")
         # phases 17-18: the encoder zoo on the same resident split
-        zoo, zoo_launches, zoo_ckpts = _zoo_pretrain(dev, mini, mini_dev, mini_labels, tag,
-                                                     args.profile, card, tmp)
+        zoo, zoo_launches, zoo_ckpts = _zoo_pretrain(dev, mini, mini_dev, mini_labels, tag, tmp)
         del mini_dev, mini_labels
         torch.cuda.empty_cache()
         zoo_eval, counts = _zoo_eval(dev, ds, images_dev, zoo_ckpts, tag, tmp)
@@ -4677,7 +4101,7 @@ def main() -> int:
         slice8_launches.update(counts)
         slice8["phases_s"] = slice8_s + time.perf_counter() - t8
         print(f"slice 8 phases (21-23) {tag}: {slice8['phases_s']:.1f} s")
-        # phases 24-28: int8, the exported artifacts, --profile-dir, the ops re-timed
+        # phases 24-27: int8, the exported artifacts, --profile-dir
         t9 = time.perf_counter()
         slice9, slice9_launches = {"int8_products": _int8_products(dev, tag)}, {}
         slice9["int8_cli"], counts = _int8_cli(dev, tmp, pth, tag)
@@ -4686,9 +4110,8 @@ def main() -> int:
         slice9_launches.update(counts)
         slice9["profile_dir"], counts = _profile_dir_phase(tmp, tag)
         slice9_launches.update(counts)
-        slice9["ops_retimed"] = _retime_ops(dev, tag)
         slice9["phases_s"] = time.perf_counter() - t9
-        print(f"slice 9 phases (24-28) {tag}: {slice9['phases_s']:.1f} s")
+        print(f"slice 9 phases (24-27) {tag}: {slice9['phases_s']:.1f} s")
         # phases 29-31: the mesh
         slice10, slice10_launches = _slice10(dev, tmp, pth, tag)
         # phases 32-36: the bench entry, the two gates, the graft entry points, the model axis

@@ -20,10 +20,16 @@ bare launches both, at the shapes it takes. Swin's window attention
 stage, shifted and not, and timed at those stages for a 2,560-image batch
 (``WINDOW_STAGES``): the bare launch beside its bytes-or-flops bound, and a
 block's whole span (qkv, attention, proj) on the kernel and on the einsum
-path. ``--only`` builds, checks and times one kernel alone.
-``chip_smoke.py`` makes the same measurements inside its full run; this is the
-short loop for working on a kernel. Every line names the card and its power
-limit.
+path. ``--only`` builds, checks and times one kernel alone. Every line names
+the card and its power limit.
+
+Two speed gates: the packed Sinkhorn route must beat the general route at a
+SUN-D eval batch of 3,000 problems of 13 and of 25 nodes, and the tensor-core
+MHSA route must beat ``scaled_dot_product_attention`` and the general route
+at the SUN-M eval's stage 2, (10240, 6, 100, 42) in bf16. The exit status is
+non-zero when a check fails or a route loses its gate. ``chip_smoke.py``
+checks the kernels on their callers' paths and takes no kernel time: the
+kernels' times are this module's.
 """
 
 from __future__ import annotations
@@ -61,6 +67,9 @@ SINKHORN_TIMED_GENERAL = 4  # the first four are timed
 # cell's batch of 2,560 images, checked at WINDOW_CHECK_BATCH.
 WINDOW_STAGES = ((56, 96, 3, 3), (28, 192, 6, 3), (14, 384, 12, 3), (7, 768, 24, 0))
 WINDOW_BATCH, WINDOW_CHECK_BATCH = 2560, 8
+# the speed gates (see the module's docstring)
+MHSA_GATE = (10240, 6, 100, 42, BF16)
+SINKHORN_GATE_BATCH = 3000
 MHSA_EDGES = ((64, 4, 512, 128), (4, 2, 129, 64), (4, 2, 128, 128), (32, 6, 25, 85),
               (2, 3, 33, 97), (3, 1, 1, 1), (8, 4, 64, 48))
 
@@ -114,7 +123,7 @@ def _sinkhorn_general(card, gen, dev, reps, others):
     NaN-filled output and the op against the plain version (1e-4, and 1e-3
     of the plain flow's largest entry), then the bare launch timed in turns
     with each other source's where it takes the shape, beside the plain
-    version (``chip_smoke.py`` phase 38 sets each against its bound)."""
+    version."""
     from ..ops.emd import normalize_weights
 
     ok = True
@@ -306,6 +315,13 @@ def main() -> int:
             plain = time_ms(lambda: fused_mhsa_reference(q, k, v, scale), 5, warm=1)
             print(f"[{card}] fused_mhsa ({b},{h},{t},{hd}) {dtype} ms per call: {ms}, "
                   f"plain {plain:.4f}")
+            if (b, h, t, hd, dtype) == MHSA_GATE:
+                tc, sdpa, general = (sum(ms[r]) / 2 for r in ("tensor_core", "sdpa", "general"))
+                good = tc < sdpa and tc < general
+                ok &= good
+                print(f"[{card}] speed gate fused_mhsa ({b},{h},{t},{hd}) {dtype}: tensor_core "
+                      f"{tc:.4f} ms against sdpa {sdpa:.4f}, general {general:.4f}: "
+                      f"{'ok' if good else 'FAIL, not the fastest'}")
             del q, k, v
 
     from ..ops.emd import normalize_weights
@@ -328,6 +344,12 @@ def main() -> int:
             ms[route].append(
                 time_ms(lambda: sinkhorn_pallas(cost, w1, w2, route=route), args.reps))
         print(f"[{card}] sinkhorn_pallas ({bsz},{n},{n}) iters 100 ms per call: {ms}")
+        if bsz == SINKHORN_GATE_BATCH:
+            packed, general = sum(ms["packed"]) / 2, sum(ms["general"]) / 2
+            good = packed < general
+            ok &= good
+            print(f"[{card}] speed gate sinkhorn_pallas ({bsz},{n},{n}): packed {packed:.4f} ms "
+                  f"against general {general:.4f}: {'ok' if good else 'FAIL, not faster'}")
     return 0 if ok else 1
 
 
