@@ -105,7 +105,11 @@ Phases, in order; any failure exits non-zero:
      Pallas kernel in the JAX package; the bf16
      ``swin_nano_patch4_window5_80`` forward (hd 32, no autograd) launches
      the window-attention kernel once a block, 5, and every other forward
-     none, counted;
+     none, counted; the bf16 forwards launch the LayerNorm kernel once a
+     LayerNorm on bf16 rows: ``swin_nano_patch4_window5_80`` 15,
+     ``swin_micro_v2_resembed_ada_80`` 17, each NesT 2 (its block
+     aggregations'), every other forward none (DeiT's and NesT's block norms
+     take fp32 inputs), counted;
  21. (after phase 16) ``solver: exact``: the ``eval.run_emd`` CLI from a
      DeepEMD checkpoint this phase writes, the geometry of
      ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 104
@@ -235,7 +239,13 @@ Phases, in order; any failure exits non-zero:
      output and the op, each held to the plain version (computed 320 images
      at a time) within 1e-2 + 2^-6 |want| (two bf16 ulps), every launch
      counted;
- 40. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
+ 40. (right after phase 39) the LayerNorm kernel (``layer_norm``, no TPU
+     kernel behind it) at Swin-T's seven LayerNorm shapes for the Swin
+     cell's 2,560-image batch, random fp32 weight and bias: the bare launch
+     into a NaN-filled output and the op, each held to the plain version
+     within one bf16 ulp (``kernels.bench.layer_norm_off``), every launch
+     counted;
+ 41. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
      ``slice10``, ``slice11`` and kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -380,6 +390,17 @@ VIS_DATA = {"n_classes": 4, "n_per_class": 8, "image_size": 80, "seed": 9}
 # phase 20: window-kernel launches of a bf16 forward without autograd (one a
 # block of hd 32); every other zoo forward launches none
 ZOO_WINDOW_LAUNCHES = {"swin_nano_patch4_window5_80": 5}
+# phase 20: LayerNorm-kernel launches of a bf16 forward without autograd, one
+# a LayerNorm on bf16 rows: every norm of the Swins, and NesT's two block
+# aggregations' (after a conv); NesT's block norms and DeiT's take fp32
+# inputs and keep the fp32 line; the rest have no LayerNorm
+ZOO_LAYER_NORM_LAUNCHES = {"swin_nano_patch4_window5_80": 15,
+                           "swin_micro_v2_resembed_ada_80": 17,
+                           **{name: 2 for name in ("nest_nano_80", "nest_micro_80",
+                                                   "nest_micro_resembed_80",
+                                                   "nest_micro_resembed_2x_80",
+                                                   "nest_micro_resembed_ada_80",
+                                                   "nest_micro_v2_rel_80", "nest_12m_v3")}}
 # phase 39: the window attention at Swin-T's stages, the Swin cell's batch
 WINDOW_BATCH = 2560
 WINDOW_CHECK_IMAGES = 320   # the plain version's images a call in the check
@@ -921,6 +942,44 @@ def _window_attention(dev, tag, gen):
             "launches": launched, "launches_path": "phase 39, Swin-T's stages",
             "max_abs_err": max(e for r in rows for e in r["max_abs_err"].values()),
             "shape": rows[0]["shape"], "rows": rows}
+
+
+def _layer_norm(dev, tag, gen):
+    """Phase 40. Returns the ``layer_norm`` entry of the kernels' JSON line."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels import layer_norm as ln
+    from fewshot_vit_tpu_torch.kernels.bench import LAYER_NORM_SHAPES, layer_norm_off
+
+    bf16, eps = torch.bfloat16, 1e-5
+    ln.layer_norm.launches = 0
+    rows, launched = [], 0
+    for n, c in LAYER_NORM_SHAPES:
+        x = (3 * torch.randn(n, c, generator=gen, device=dev) + 0.5).to(bf16)
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        want = ln.layer_norm_reference(x, w, b, eps, bf16)
+        bare = torch.full_like(x, float("nan"))
+        ln._launch(x, w, b, bare, eps)
+        op = ln.layer_norm(x, w, b, eps)
+        launched += 2
+        ulps = max(layer_norm_off(got, want) for got in (bare, op))
+        err = max((got.float() - want.float()).abs().nan_to_num(float("inf")).max().item()
+                  for got in (bare, op))
+        print(f"layer_norm {tag} ({n},{c}): bare launch and op against the plain version, "
+              f"max|d|={err:.3e}, at most {ulps} bf16 ulp off beyond 1e-4 (limit 1)")
+        if ulps > 1:
+            _fail(f"layer_norm ({n},{c}): the kernel is {ulps} bf16 ulps off its plain version")
+        if ln.layer_norm.launches != launched:
+            _fail(f"layer_norm: expected {launched} launches, counted {ln.layer_norm.launches}")
+        rows.append({"shape": [n, c], "max_abs_err": err, "max_ulps": ulps})
+        del x, want, bare, op
+        torch.cuda.empty_cache()
+    return {"name": "layer_norm", "kernel": "layer_norm_kernel", "route": "cuda",
+            "source": "fewshot_vit_tpu_torch/csrc/layer_norm.cu", "replaces": None,
+            "launches": launched, "launches_path": "phase 40, Swin-T's LayerNorms",
+            "max_abs_err": max(r["max_abs_err"] for r in rows), "shape": rows[0]["shape"],
+            "rows": rows}
 
 
 def _state_copy(module):
@@ -2172,6 +2231,7 @@ def _zoo_forward(dev, tag, tmp):
 
     from fewshot_vit_tpu_torch.core.registry import models
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.layer_norm import layer_norm
     from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
     from fewshot_vit_tpu_torch.kernels.window import window_attention
     from fewshot_vit_tpu_torch.train.runner import load_encoder_from_checkpoint
@@ -2185,18 +2245,22 @@ def _zoo_forward(dev, tag, tmp):
             dn = str(dtype).split(".")[1]
             enc = models.make(name, dtype=dtype, device=dev, seed=0)
             _zero_counts(fused_mhsa, sinkhorn_pallas)
-            window_attention.launches = 0
+            window_attention.launches = layer_norm.launches = 0
             with torch.inference_mode():
                 dense, pooled = enc(x)
-            windows = window_attention.launches
-            want = ZOO_WINDOW_LAUNCHES.get(name, 0) if dtype == torch.bfloat16 else 0
-            if windows != want:
-                _fail(f"zoo forward {name} {dn}: expected {want} window-attention launches, "
-                      f"counted {windows}")
+            windows, norms = window_attention.launches, layer_norm.launches
+            bf16 = dtype == torch.bfloat16
+            for kernel, got, want in (
+                    ("window-attention", windows, ZOO_WINDOW_LAUNCHES.get(name, 0) if bf16 else 0),
+                    ("LayerNorm", norms, ZOO_LAYER_NORM_LAUNCHES.get(name, 0) if bf16 else 0)):
+                if got != want:
+                    _fail(f"zoo forward {name} {dn}: expected {want} {kernel} launches, "
+                          f"counted {got}")
             e[f"window_launches_{dn}"] = windows
+            e[f"layer_norm_launches_{dn}"] = norms
             counts[f"zoo_forward_{name}_{dn}"] = {
                 **_expect_counts(f"zoo forward {name}", "general", 0),
-                "window_attention": windows}
+                "window_attention": windows, "layer_norm": norms}
             if (tuple(dense.shape) != (ZOO_BATCH, *dense_shape)
                     or tuple(pooled.shape) != (ZOO_BATCH, width)):
                 _fail(f"zoo forward {name} {dn}: shapes {tuple(dense.shape)} "
@@ -2207,7 +2271,9 @@ def _zoo_forward(dev, tag, tmp):
         print(f"zoo forward {tag} {name}: {ZOO_BATCH} images at {size}x{size}, fp32 and bf16 "
               f"finite, dense {dense_shape}, pooled {width} as the JAX package's; MHSA and "
               f"Sinkhorn launches 0, window-attention launches {e['window_launches_float32']} "
-              f"fp32, {e['window_launches_bfloat16']} bf16")
+              f"fp32, {e['window_launches_bfloat16']} bf16, LayerNorm launches "
+              f"{e['layer_norm_launches_float32']} fp32, {e['layer_norm_launches_bfloat16']} "
+              f"bf16")
         del x
         torch.cuda.empty_cache()
     for name in ZOO_PTH:
@@ -4021,6 +4087,9 @@ def main() -> int:
     # phase 39: Swin's window attention at Swin-T's stages
     kernels.append(_window_attention(dev, tag, gen))
     lap("39 (the window attention)")
+    # phase 40: the LayerNorm kernel at Swin-T's LayerNorms
+    kernels.append(_layer_norm(dev, tag, gen))
+    lap("40 (the LayerNorm kernel)")
 
     # phases 8-10: the two trainers
     val_ds = datasets.make("synthetic", n_classes=20, n_per_class=40, image_size=80, seed=3)
@@ -4117,9 +4186,10 @@ def main() -> int:
         # phases 32-36: the bench entry, the two gates, the graft entry points, the model axis
         slice11, slice11_launches = _slice11(dev, tmp, tag)
     for entry in kernels:
-        if entry["name"] == "window_attention":  # counted only where a Swin reaches it
-            entry["zoo_launches"] = {path: c["window_attention"]
-                                     for path, c in zoo_launches.items() if "window_attention" in c}
+        # the window and LayerNorm kernels are counted only on the zoo's forwards
+        if entry["name"] in ("window_attention", "layer_norm"):
+            entry["zoo_launches"] = {path: c[entry["name"]]
+                                     for path, c in zoo_launches.items() if entry["name"] in c}
             continue
 
         def count(c, entry=entry):  # an entry counts its own kernel's (route's) launches

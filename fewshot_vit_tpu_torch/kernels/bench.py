@@ -1,7 +1,7 @@
 """Check and time the hand-written kernels alone on one card, route against route.
 
     python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--ptxas]
-        [--only sinkhorn|window] [--against OTHER/sinkhorn.cu ...]
+        [--only sinkhorn|window|layer_norm] [--against OTHER/sinkhorn.cu ...]
 
 Builds ``csrc/*.cu``, prints what ``ptxas -v`` says of every kernel (registers,
 spills, shared memory), holds each route of ``fused_mhsa`` and
@@ -20,7 +20,14 @@ bare launches both, at the shapes it takes. Swin's window attention
 stage, shifted and not, and timed at those stages for a 2,560-image batch
 (``WINDOW_STAGES``): the bare launch beside its bytes-or-flops bound, and a
 block's whole span (qkv, attention, proj) on the kernel and on the einsum
-path. ``--only`` builds, checks and times one kernel alone. Every line names
+path. The LayerNorm kernel (``layer_norm``) is checked against its plain
+version at Swin-T's widths and at widths that reach every compiled vector
+count and the masked tail (``LAYER_NORM_CHECK_WIDTHS``), at row counts of 1,
+7 and a ragged tail, and timed at Swin-T's LayerNorm shapes for a 2,560-image batch
+(``LAYER_NORM_SHAPES``): the bare launch beside its bytes bound, the plain
+version (fp32 LayerNorm between two casts), and ``F.layer_norm`` on the bf16
+tensor with bf16 weights, the library's yardstick, which the port never
+calls. ``--only`` builds, checks and times one kernel alone. Every line names
 the card and its power limit.
 
 Two speed gates: the packed Sinkhorn route must beat the general route at a
@@ -44,6 +51,7 @@ from . import build
 from . import attention, sinkhorn
 from .attention import fused_mhsa, fused_mhsa_reference
 from .sinkhorn import sinkhorn_pallas, sinkhorn_reference
+from . import layer_norm as ln
 from . import window as wa
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -67,6 +75,19 @@ SINKHORN_TIMED_GENERAL = 4  # the first four are timed
 # cell's batch of 2,560 images, checked at WINDOW_CHECK_BATCH.
 WINDOW_STAGES = ((56, 96, 3, 3), (28, 192, 6, 3), (14, 384, 12, 3), (7, 768, 24, 0))
 WINDOW_BATCH, WINDOW_CHECK_BATCH = 2560, 8
+# Swin-T's LayerNorms at 224 px for a 2,560-image batch: (rows, width) of
+# stage 1's norms (and the patch embedding's), merge 1's, stage 2's, merge
+# 2's, stage 3's, merge 3's, stage 4's (and the final norm)
+LAYER_NORM_SHAPES = ((8028160, 96), (2007040, 384), (2007040, 192), (501760, 768),
+                     (501760, 384), (125440, 1536), (125440, 768))
+# checked at LAYER_NORM_CHECK_ROWS rows: Swin-T's widths (16-byte vectors a
+# lane V = 3, or 6 at 1,536) and widths that reach every other compiled V
+# (8: 1, 16: 2, 64: 4, 144 and 272: 5, 1,600: 7, 1,800 and 2,048: 8) and
+# the masked tail, a row's vectors no whole multiple of its lanes (144, 272,
+# 576, 1,152, 1,600, 1,800; the zoo's Swins run 144, 576 and 1,152)
+LAYER_NORM_CHECK_WIDTHS = (8, 16, 64, 96, 144, 192, 272, 384, 576, 768, 1152, 1536, 1600, 1800,
+                           2048)
+LAYER_NORM_CHECK_ROWS = (1, 7, 4099)
 # the speed gates (see the module's docstring)
 MHSA_GATE = (10240, 6, 100, 42, BF16)
 SINKHORN_GATE_BATCH = 3000
@@ -234,6 +255,72 @@ def _window(card, gen, dev, reps) -> bool:
     return ok
 
 
+def layer_norm_bound_ms(rows: int, c: int) -> float:
+    """Least ms of one launch: the bf16 rows read and written once and the
+    fp32 weight and bias read once, at 3.35 TB/s."""
+    return (rows * c * 2 * 2 + 2 * c * 4) / 3.35e12 * 1e3
+
+
+def layer_norm_off(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The most bf16 ulps between ``got`` and ``want`` (bf16) over the
+    elements more than 1e-4 apart: their bit patterns as sign and magnitude
+    on one monotone integer line. An output near 0 cancels w x-hat against b
+    and shows the fp32 sums' order unscaled; a NaN lies thousands of ulps
+    from any number."""
+    def line(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    far = (got.float() - want.float()).abs().nan_to_num(float("inf")) > 1e-4
+    ulps = (line(got) - line(want)).abs()[far]
+    return int(ulps.max().item()) if ulps.numel() else 0
+
+
+def _layer_norm(card, gen, dev, reps) -> bool:
+    """The LayerNorm kernel against its plain version at
+    ``LAYER_NORM_CHECK_WIDTHS`` and row counts of 1, 7 and a ragged tail (the
+    bare launch into a NaN-filled output, and the op), with random fp32
+    weight and bias, within one bf16 ulp (``layer_norm_off``); then, at a
+    2,560-image batch's shapes, the bare launch timed in turns with
+    ``F.layer_norm`` on bf16 with bf16 weights, beside its bound and the
+    plain version."""
+    ok = True
+    for c in LAYER_NORM_CHECK_WIDTHS:
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        for rows in LAYER_NORM_CHECK_ROWS:
+            x = (3 * torch.randn(rows, c, generator=gen, device=dev) + 0.5).to(BF16)
+            want = ln.layer_norm_reference(x, w, b, 1e-5, BF16)
+            out = torch.full_like(x, float("nan"))
+            ln._launch(x, w, b, out, 1e-5)
+            got = ln.layer_norm(x, w, b, 1e-5)
+            torch.cuda.synchronize()
+            off = max(layer_norm_off(o, want) for o in (out, got))
+            good = off <= 1
+            ok &= good
+            print(f"[{card}] layer_norm ({rows},{c}): at most {off} bf16 ulp off the plain "
+                  f"version{'' if good else '  FAIL'}")
+    for rows, c in LAYER_NORM_SHAPES:
+        x = torch.randn(rows, c, generator=gen, device=dev).to(BF16)
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        w16, b16 = w.to(BF16), b.to(BF16)
+        out = torch.empty_like(x)
+        with torch.inference_mode():
+            fns = {"kernel": lambda: ln._launch(x, w, b, out, 1e-5),
+                   "library": lambda: torch.nn.functional.layer_norm(x, (c,), w16, b16, 1e-5)}
+            ms = {name: [] for name in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                ms[name].append(time_ms(fns[name], reps))
+            plain = time_ms(lambda: ln.layer_norm_reference(x, w, b, 1e-5, BF16), 3, warm=1)
+        bound = layer_norm_bound_ms(rows, c)
+        kernel = sum(ms["kernel"]) / 2
+        print(f"[{card}] layer_norm ({rows},{c}) ms: {ms}, bound {bound:.4f} "
+              f"({100 * bound / kernel:.1f}% of it), plain {plain:.4f}")
+        del x, out
+    return ok
+
+
 def mhsa_routes(q: torch.Tensor):
     """Every route that takes q: the general route, and the tensor-core
     route where it applies."""
@@ -269,7 +356,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--ptxas", action="store_true", help="print every kernel's ptxas line")
-    p.add_argument("--only", choices=("sinkhorn", "window"), help="one kernel alone")
+    p.add_argument("--only", choices=("sinkhorn", "window", "layer_norm"),
+                   help="one kernel alone")
     p.add_argument("--against", nargs="+", default=(),
                    help="other sinkhorn.cu files whose general route is timed beside this one's")
     args = p.parse_args()
@@ -279,8 +367,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card)
-    logs = build.build({"sinkhorn": ("sinkhorn",), "window": ("window_attn",)}.get(
-        args.only, build.SOURCES))
+    logs = build.build({"sinkhorn": ("sinkhorn",), "window": ("window_attn",),
+                        "layer_norm": ("layer_norm",)}.get(args.only, build.SOURCES))
     for name, log in logs.items():
         lines = build.ptxas_summary(log)
         spills = [x for x in lines if "spill" in x]
@@ -290,10 +378,12 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    if args.only == "window":
-        return 0 if _window(card, gen, dev, args.reps) else 1
+    if args.only in ("window", "layer_norm"):
+        return 0 if {"window": _window, "layer_norm": _layer_norm}[args.only](
+            card, gen, dev, args.reps) else 1
     sinkhorn_only = args.only == "sinkhorn"
-    ok = True if sinkhorn_only else _window(card, gen, dev, args.reps)
+    ok = True if sinkhorn_only else _window(card, gen, dev, args.reps) & _layer_norm(
+        card, gen, dev, args.reps)
     ok &= _sinkhorn_general(card, gen, dev, args.reps,
                            {src: _against(src, str(i)) for i, src in enumerate(args.against)})
     for b, h, t, hd in () if sinkhorn_only else MHSA_EDGES:

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import trace
+from ..kernels.layer_norm import kernel_takes, layer_norm, layer_norm_reference
 from ..parallel.mesh import all_reduce_sum, data_group
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, used across the zoo
@@ -271,9 +273,23 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 INITS[m.init](m.weight, generator)
 
 
+def layer_norm_route(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """True where a LayerNorm of ``x`` to ``dtype`` takes the kernel
+    (``kernels/layer_norm.py``): a CUDA tensor, bf16 in and out, no gradient
+    recorded, rows packed at stride C from a 16-byte aligned start, a width
+    the kernel takes. Everything else takes the plain fp32 path."""
+    return (x.device.type == "cuda" and not torch.is_grad_enabled()
+            and kernel_takes(x.dtype, dtype, x.shape[-1],
+                             x.is_contiguous() and x.storage_offset() * x.element_size() % 16 == 0))
+
+
 class LayerNorm(nn.Module):
     """flax's ``LayerNorm`` over the last axis: fp32 statistics and affine,
-    output in ``dtype``; ``weight`` / ``bias`` as ``nn.LayerNorm``."""
+    output in ``dtype``; ``weight`` / ``bias`` as ``nn.LayerNorm``.
+
+    Span ``encoder.norm``, one a call; counters ``encoder.norm_elems``
+    (elements normalised) and ``encoder.norm_elems_fused`` (those the kernel
+    normalised, ``layer_norm_route``)."""
 
     def __init__(self, c: int, eps: float, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -282,8 +298,12 @@ class LayerNorm(nn.Module):
         self.eps, self.dtype = eps, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
-        return y.to(self.dtype)
+        with trace.span("encoder.norm"):
+            trace.count("encoder.norm_elems", x.numel())
+            if layer_norm_route(x, self.dtype):
+                trace.count("encoder.norm_elems_fused", x.numel())
+                return layer_norm(x, self.weight, self.bias, self.eps)
+            return layer_norm_reference(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 def max_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:

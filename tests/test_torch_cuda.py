@@ -15,6 +15,8 @@ import torch
 from fewshot_vit_tpu_torch.heads.deepemd import emd_logits
 from fewshot_vit_tpu_torch.kernels import attention as tk
 from fewshot_vit_tpu_torch.kernels import sinkhorn as tks
+from fewshot_vit_tpu_torch.kernels.bench import (LAYER_NORM_CHECK_ROWS, LAYER_NORM_CHECK_WIDTHS,
+                                                 layer_norm_off)
 from fewshot_vit_tpu_torch.models.visformer import Visformer
 from fewshot_vit_tpu_torch.ops.emd import normalize_weights
 
@@ -595,3 +597,116 @@ def test_window_op_on_the_card(cuda_device):  # noqa: F811
     torch.library.opcheck(tw.window_attention_op, (qkv, table, 6, 7, 3, 32 ** -0.5))
     with pytest.raises(ValueError):  # fp32 is the einsum path's
         tw.window_attention(qkv.float(), table, 6, 7, 3, 32 ** -0.5)
+
+
+def _norm_inputs(rows, c, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((3 * rng.normal(size=(rows, c)) + 0.5).astype(np.float32)).to(
+        device, torch.bfloat16)
+    w = torch.from_numpy((1 + 0.1 * rng.normal(size=c)).astype(np.float32)).to(device)
+    b = torch.from_numpy((0.1 * rng.normal(size=c)).astype(np.float32)).to(device)
+    return x, w, b
+
+
+@pytest.mark.parametrize("c", LAYER_NORM_CHECK_WIDTHS)
+@pytest.mark.parametrize("rows", LAYER_NORM_CHECK_ROWS)
+def test_layer_norm_kernel_matches_the_reference(cuda_device, rows, c):  # noqa: F811
+    """The bare launch into a NaN-filled output and the op, against
+    ``layer_norm_reference`` on the card with random fp32 weight and bias,
+    at Swin-T's widths, at widths that reach every compiled vector count and
+    the masked tail (``kernels/bench.py``), and at row counts of 1, 7 and a
+    ragged tail (4099 is no multiple of a CTA's rows at any width): every
+    element within one bf16 ulp of the plain version's, or within 1e-4 of
+    it. fp32 sums in another order move the mean and rstd by a few fp32
+    ulps: that can flip one rounding to bf16, and shows unscaled on an
+    output near 0, where w x-hat cancels b."""
+    from fewshot_vit_tpu_torch.kernels import layer_norm as tln
+
+    x, w, b = _norm_inputs(rows, c, rows + c, cuda_device)
+    want = tln.layer_norm_reference(x, w, b, 1e-5, torch.bfloat16)
+    bare = torch.full_like(x, float("nan"))
+    before = tln.layer_norm.launches
+    tln._launch(x, w, b, bare, 1e-5)
+    got = tln.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert tln.layer_norm.launches == before + 2
+    for out in (bare, got):
+        assert out.dtype == torch.bfloat16
+        assert layer_norm_off(out, want) <= 1
+
+
+def test_layer_norm_other_inputs_keep_the_plain_path(cuda_device):  # noqa: F811
+    """A strided bf16 input, an fp32 LayerNorm and a forward under autograd
+    launch nothing and equal the plain version bit for bit; a bf16 LayerNorm
+    without autograd on contiguous rows launches the kernel; the op refuses
+    fp32 and a width that is no multiple of 8 on the card."""
+    from fewshot_vit_tpu_torch.kernels import layer_norm as tln
+    from fewshot_vit_tpu_torch.models.common import LayerNorm
+
+    x, w, b = _norm_inputs(64, 192, 3, cuda_device)
+    norm16 = LayerNorm(192, 1e-5, torch.bfloat16).to(cuda_device)
+    norm32 = LayerNorm(192, 1e-5, torch.float32).to(cuda_device)
+    with torch.no_grad():
+        for m in (norm16, norm32):
+            m.weight.copy_(w)
+            m.bias.copy_(b)
+    strided = x.reshape(8, 8, 192).transpose(0, 1)
+    before = tln.layer_norm.launches
+    with torch.no_grad():
+        cases = [(norm16, strided), (norm32, x.float())]
+        plain = [m(t) for m, t in cases]
+    with torch.enable_grad():
+        graded = norm16(x)
+    torch.cuda.synchronize()
+    assert tln.layer_norm.launches == before
+    for (m, t), got in zip(cases + [(norm16, x)], plain + [graded.detach()]):
+        assert torch.equal(got, tln.layer_norm_reference(t, w, b, 1e-5, m.dtype))
+    with torch.inference_mode():
+        fused = norm16(x)
+    torch.cuda.synchronize()
+    assert tln.layer_norm.launches == before + 1 and fused.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        tln.layer_norm(x.float(), w, b, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tln.layer_norm(x[:, :100].contiguous(), w[:100], b[:100], 1e-5)
+
+
+def test_layer_norm_op_on_the_card(cuda_device):  # noqa: F811
+    from fewshot_vit_tpu_torch.kernels import layer_norm as tln
+
+    x, w, b = _norm_inputs(300, 384, 5, cuda_device)
+    torch.library.opcheck(tln.layer_norm_op, (x.reshape(3, 100, 384), w, b, 1e-5))
+
+
+def test_swin_forward_launches_the_layer_norm_kernel(cuda_device):  # noqa: F811
+    """A bf16 Swin-T forward without autograd launches the LayerNorm kernel
+    for each of its 29 LayerNorms, all counted as fused; with autograd on it
+    launches none. Both bf16 forwards stay as close to the fp32 forward as
+    the window kernel's test holds them (twice the plain bf16 path's gap,
+    plus 1e-2)."""
+    from fewshot_vit_tpu_torch.core import trace
+    from fewshot_vit_tpu_torch.kernels import layer_norm as tln
+
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 224, 224, 3))
+                         .astype(np.float32)).to(cuda_device)
+    enc16, enc32 = _swin_t(torch.bfloat16, cuda_device), _swin_t(torch.float32, cuda_device)
+    before = tln.layer_norm.launches
+    trace.reset()
+    trace.enable()
+    try:
+        with torch.no_grad():
+            fused, ref = enc16(x), enc32(x)
+        torch.cuda.synchronize()
+        snap = trace.reset()
+    finally:
+        trace.disable()
+    assert tln.layer_norm.launches == before + 29
+    assert len(snap["spans"]["encoder.norm"]) == 2 * 29
+    assert snap["counters"]["encoder.norm_elems"] == 2 * 2 * 3725568
+    assert snap["counters"]["encoder.norm_elems_fused"] == 2 * 3725568
+    with torch.enable_grad():
+        plain = [t.detach() for t in enc16(x)]
+    torch.cuda.synchronize()
+    assert tln.layer_norm.launches == before + 29
+    for a, p, r in zip(fused, plain, ref):
+        assert (a.float() - r).abs().max().item() <= 2 * (p.float() - r).abs().max().item() + 1e-2
