@@ -100,16 +100,17 @@ Phases, in order; any failure exits non-zero:
      steps: BN statistics unchanged, parameters moved;
  20. every other registered encoder at full width, one batch of 640 images
      at its own input size in fp32 and bf16: finite, the JAX package's
-     shapes; a reference-format ``.pth`` round trip per family. No zoo path
-     launches the MHSA or the Sinkhorn kernel, as no zoo encoder reaches a
-     Pallas kernel in the JAX package; the bf16
+     shapes (``nest_tiny_s196_224``, the port's alone, the paper's: one
+     14 x 14 block of 384); a reference-format ``.pth`` round trip per
+     family. No zoo path launches the MHSA or the Sinkhorn kernel, as no
+     zoo encoder reaches a Pallas kernel in the JAX package; the bf16
      ``swin_nano_patch4_window5_80`` forward (hd 32, no autograd) launches
      the window-attention kernel once a block, 5, and every other forward
      none, counted; the bf16 forwards launch the LayerNorm kernel once a
      LayerNorm on bf16 rows: ``swin_nano_patch4_window5_80`` 15,
      ``swin_micro_v2_resembed_ada_80`` 17, each NesT 2 (its block
-     aggregations'), every other forward none (DeiT's and NesT's block norms
-     take fp32 inputs), counted;
+     aggregations'; NesT-T's as in the NesT cell), every other forward none
+     (DeiT's and NesT's block norms take fp32 inputs), counted;
  21. (after phase 16) ``solver: exact``: the ``eval.run_emd`` CLI from a
      DeepEMD checkpoint this phase writes, the geometry of
      ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 104
@@ -241,7 +242,9 @@ Phases, in order; any failure exits non-zero:
      counted;
  40. (right after phase 39) the LayerNorm kernel (``layer_norm``, no TPU
      kernel behind it) at Swin-T's seven LayerNorm shapes for the Swin
-     cell's 2,560-image batch, random fp32 weight and bias: the bare launch
+     cell's 2,560-image batch and at NesT-T's level-2 block aggregation's
+     for the NesT cell's (its level-3 one is Swin-T's (2007040, 384)),
+     random fp32 weight and bias: the bare launch
      into a NaN-filled output and the op, each held to the plain version
      within one bf16 ulp (``kernels.bench.layer_norm_off``), every launch
      counted;
@@ -339,7 +342,8 @@ ZOO_META = {"way": 5, "shot": 1, "query": 15, "ep_per_batch": 4, "max_epoch": 50
 ZOO_META_STEPS = 4
 ZOO_BATCH = 640             # one eval-CLI batch: 8 episodes x 80 images
 # every other registered encoder -> (input edge, dense map shape, pooled width),
-# the JAX package's output shapes (jax.eval_shape of its apply)
+# the JAX package's output shapes (jax.eval_shape of its apply); of those in
+# PORT_ONLY, which the JAX package lacks, the paper's
 ZOO_SHAPES = {
     "nest_nano_80": (80, (5, 5, 384), 384),
     "nest_micro_80": (80, (5, 5, 512), 512),
@@ -361,7 +365,9 @@ ZOO_SHAPES = {
     "resnet12-wide": (80, (5, 5, 640), 640),
     "resnet12-drop": (80, (10, 10, 640), 640),
     "convnet4": (80, (5, 5, 64), 1600),
+    "nest_tiny_s196_224": (224, (14, 14, 384), 384),  # the port's alone
 }
+PORT_ONLY = ("nest_tiny_s196_224",)
 # one name per family for the reference-format .pth round trip
 ZOO_PTH = ("nest_micro_v2_rel_80", "swin_micro_v2_resembed_ada_80", "levit_micro_80",
            "lvvit_micro_80", "deit_small_patch16_224", "resnet50", "resnet18", "resnet12-wide",
@@ -400,11 +406,16 @@ ZOO_LAYER_NORM_LAUNCHES = {"swin_nano_patch4_window5_80": 15,
                                                    "nest_micro_resembed_80",
                                                    "nest_micro_resembed_2x_80",
                                                    "nest_micro_resembed_ada_80",
-                                                   "nest_micro_v2_rel_80", "nest_12m_v3")}}
+                                                   "nest_micro_v2_rel_80", "nest_12m_v3",
+                                                   "nest_tiny_s196_224")}}
 # phase 39: the window attention at Swin-T's stages, the Swin cell's batch
 WINDOW_BATCH = 2560
 WINDOW_CHECK_IMAGES = 320   # the plain version's images a call in the check
 WINDOW_ATOL, WINDOW_RTOL = 1e-2, 2.0 ** -6
+# phase 40: NesT-T's block aggregations' LayerNorms, its only bf16 rows, for
+# the NesT cell's 2,560-image batch: level 2's (56 x 56 x 192 an image, 3.08
+# GB in bf16, past 2^31 bytes) and level 3's (28 x 28 x 384)
+NEST_T_LAYER_NORM_SHAPES = ((8028160, 192), (2007040, 384))
 
 
 def _fail(msg: str) -> None:
@@ -954,7 +965,9 @@ def _layer_norm(dev, tag, gen):
     bf16, eps = torch.bfloat16, 1e-5
     ln.layer_norm.launches = 0
     rows, launched = [], 0
-    for n, c in LAYER_NORM_SHAPES:
+    shapes = LAYER_NORM_SHAPES + tuple(s for s in NEST_T_LAYER_NORM_SHAPES
+                                       if s not in LAYER_NORM_SHAPES)
+    for n, c in shapes:
         x = (3 * torch.randn(n, c, generator=gen, device=dev) + 0.5).to(bf16)
         w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
         b = 0.1 * torch.randn(c, generator=gen, device=dev)
@@ -977,7 +990,7 @@ def _layer_norm(dev, tag, gen):
         torch.cuda.empty_cache()
     return {"name": "layer_norm", "kernel": "layer_norm_kernel", "route": "cuda",
             "source": "fewshot_vit_tpu_torch/csrc/layer_norm.cu", "replaces": None,
-            "launches": launched, "launches_path": "phase 40, Swin-T's LayerNorms",
+            "launches": launched, "launches_path": "phase 40, Swin-T's and NesT-T's LayerNorms",
             "max_abs_err": max(r["max_abs_err"] for r in rows), "shape": rows[0]["shape"],
             "rows": rows}
 
@@ -2264,12 +2277,13 @@ def _zoo_forward(dev, tag, tmp):
             if (tuple(dense.shape) != (ZOO_BATCH, *dense_shape)
                     or tuple(pooled.shape) != (ZOO_BATCH, width)):
                 _fail(f"zoo forward {name} {dn}: shapes {tuple(dense.shape)} "
-                      f"{tuple(pooled.shape)}, the JAX package's {dense_shape} {width}")
+                      f"{tuple(pooled.shape)}, {dense_shape} {width} expected")
             if not (torch.isfinite(dense).all() and torch.isfinite(pooled).all()):
                 _fail(f"zoo forward {name} {dn}: an output is not finite")
             del enc, dense, pooled
+        whose = "the paper's" if name in PORT_ONLY else "the JAX package's"
         print(f"zoo forward {tag} {name}: {ZOO_BATCH} images at {size}x{size}, fp32 and bf16 "
-              f"finite, dense {dense_shape}, pooled {width} as the JAX package's; MHSA and "
+              f"finite, dense {dense_shape}, pooled {width} as {whose}; MHSA and "
               f"Sinkhorn launches 0, window-attention launches {e['window_launches_float32']} "
               f"fp32, {e['window_launches_bfloat16']} bf16, LayerNorm launches "
               f"{e['layer_norm_launches_float32']} fp32, {e['layer_norm_launches_bfloat16']} "

@@ -16,6 +16,15 @@
     runs at twice the block edge (``nest_micro_resembed_2x_80``);
   * forward: NHWC (B, H, W, 3) -> (dense NHWC, pooled).
 
+Spans (``core/trace.py``): ``encoder`` > ``encoder.stem`` (the patch embed
+or the conv stem), ``encoder.stage1`` .. ``encoder.stage<n>`` (a level with
+the ConvPool that feeds it, its positional add, its layers and the
+deblockify; the last one the final norm and pooling), and in every
+transformer layer ``encoder.block_attn`` (the qkv projection, the attention
+within each block, the proj projection; ``norm1`` stays outside). Counter
+``encoder.blocks``: blocks attended, B * T a layer (48 an image for NesT-T
+at 224 px).
+
 State-dict keys are the reference's (``levels.1.transformer_encoder.0.attn.qkv``,
 ``levels.0.pos_embed``, ``levels.1.pool.conv``, ``patch_embed.proj``), the
 keys ``checkpoint/from_flax.py::nest_key`` gives.
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
 from .common import (
@@ -165,7 +175,11 @@ class NestTransformerLayer(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
+        y = self.norm1(x)
+        with trace.span("encoder.block_attn"):
+            trace.count("encoder.blocks", x.shape[0] * x.shape[1])
+            y = self.attn(y)
+        x = x + self.drop_path(y)
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
@@ -268,21 +282,28 @@ class Nest(nn.Module):
         self.to(device).eval()
 
     def forward(self, x: torch.Tensor):
-        x = self.patch_embed(x)
-        for level, lb in zip(self.levels, self.blocks_edge):
-            if hasattr(level, "pool"):
-                x = level.pool(x)
-            x = self.pos_drop(blockify(x, lb) + level.pos_embed)
-            for layer in level.transformer_encoder:
-                x = layer(x)
-            x = deblockify(x, lb)
-        x = self.norm(x)
-        return x, self.pos_drop(x.mean(dim=(1, 2)))
+        with trace.span("encoder"):
+            with trace.span("encoder.stem"):
+                x = self.patch_embed(x)
+            for i, (level, lb) in enumerate(zip(self.levels, self.blocks_edge), start=1):
+                with trace.span(f"encoder.stage{i}"):
+                    if hasattr(level, "pool"):
+                        x = level.pool(x)
+                    x = self.pos_drop(blockify(x, lb) + level.pos_embed)
+                    for layer in level.transformer_encoder:
+                        x = layer(x)
+                    x = deblockify(x, lb)
+                    if i == len(self.levels):  # the last level: final norm and pooling
+                        x = self.norm(x)
+                        return x, self.pos_drop(x.mean(dim=(1, 2)))
 
 
 _MICRO = dict(embed_dims=(128, 384, 512), num_heads=(4, 12, 16), depths=(2, 2, 2))
 _V2 = dict(embed_dims=(128, 384, 512), num_heads=(16, 24, 32), depths=(2, 2, 2))
 _VARIANTS = {
+    # Zhang et al., AAAI 2022 (arXiv:2105.12723): nest_tiny_s196_224, 196 tokens a block
+    "nest_tiny_s196_224": dict(img_size=224, patch_size=4, embed_dims=(96, 192, 384),
+                               num_heads=(3, 6, 12), depths=(2, 2, 8)),
     "nest_nano_80": dict(embed_dims=(96, 192, 384), num_heads=(3, 6, 12), depths=(2, 3, 3)),
     "nest_micro_80": _MICRO,
     "nest_micro_resembed_80": dict(_MICRO, conv_stem=True),
