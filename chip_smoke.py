@@ -110,7 +110,11 @@ Phases, in order; any failure exits non-zero:
      LayerNorm on bf16 rows: ``swin_nano_patch4_window5_80`` 15,
      ``swin_micro_v2_resembed_ada_80`` 17, each NesT 2 (its block
      aggregations'; NesT-T's as in the NesT cell), every other forward none
-     (DeiT's and NesT's block norms take fp32 inputs), counted;
+     (DeiT's and NesT's block norms take fp32 inputs), counted; and the
+     block-attention kernel once a standard-kind NesT layer of hd 32:
+     ``nest_tiny_s196_224`` 12 (as in the NesT cell), ``nest_nano_80`` 8,
+     the other 80 px micro NesTs 6, the ``rel`` kind and ``nest_12m_v3``
+     none, counted;
  21. (after phase 16) ``solver: exact``: the ``eval.run_emd`` CLI from a
      DeepEMD checkpoint this phase writes, the geometry of
      ``configs/sund_mini_visformer_1shot.yaml`` (grid, 13 nodes), 104
@@ -248,7 +252,16 @@ Phases, in order; any failure exits non-zero:
      into a NaN-filled output and the op, each held to the plain version
      within one bf16 ulp (``kernels.bench.layer_norm_off``), every launch
      counted;
- 41. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
+ 41. (right after phase 40) NesT's block attention (``block_attention``, no
+     TPU kernel behind it) at NesT-T's three levels and at the 80 px NesTs'
+     blocks of 25 and 100 tokens (``kernels.bench.BLOCK_SHAPES``) for the
+     NesT cell's 2,560-image batch, q and k at std 1: the bare launch into a
+     NaN-filled output and the op, each held to the plain version (computed
+     320 images at a time) within 1e-2 + 2^-6 |want| an element and within
+     ``kernels.bench.BLOCK_REL_RMS`` in rms(got - want) / rms(want) over the
+     output (a padded key left unmasked fails the second), every launch
+     counted;
+ 42. print the ``training``, ``eval_clis``, ``slice8``, ``slice9``,
      ``slice10``, ``slice11`` and kernels' JSON lines, then the result line.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -396,6 +409,13 @@ VIS_DATA = {"n_classes": 4, "n_per_class": 8, "image_size": 80, "seed": 9}
 # phase 20: window-kernel launches of a bf16 forward without autograd (one a
 # block of hd 32); every other zoo forward launches none
 ZOO_WINDOW_LAUNCHES = {"swin_nano_patch4_window5_80": 5}
+# phase 20: block-attention-kernel launches of a bf16 forward without
+# autograd, one a standard-kind NesT layer of hd 32 (blocks of up to 200
+# tokens): NesT-T's 12, the 80 px NesTs' layers; the rel kind, GPSA and the
+# other head widths (nest_12m_v3) take the einsum path
+ZOO_BLOCK_LAUNCHES = {"nest_nano_80": 8, "nest_micro_80": 6, "nest_micro_resembed_80": 6,
+                      "nest_micro_resembed_2x_80": 6, "nest_micro_resembed_ada_80": 6,
+                      "nest_tiny_s196_224": 12}
 # phase 20: LayerNorm-kernel launches of a bf16 forward without autograd, one
 # a LayerNorm on bf16 rows: every norm of the Swins, and NesT's two block
 # aggregations' (after a conv); NesT's block norms and DeiT's take fp32
@@ -416,6 +436,9 @@ WINDOW_ATOL, WINDOW_RTOL = 1e-2, 2.0 ** -6
 # the NesT cell's 2,560-image batch: level 2's (56 x 56 x 192 an image, 3.08
 # GB in bf16, past 2^31 bytes) and level 3's (28 x 28 x 384)
 NEST_T_LAYER_NORM_SHAPES = ((8028160, 192), (2007040, 384))
+# phase 41: the block attention for the NesT cell's batch
+BLOCK_BATCH = 2560
+BLOCK_CHECK_IMAGES = 320    # the plain version's images a call in the check
 
 
 def _fail(msg: str) -> None:
@@ -992,6 +1015,62 @@ def _layer_norm(dev, tag, gen):
             "source": "fewshot_vit_tpu_torch/csrc/layer_norm.cu", "replaces": None,
             "launches": launched, "launches_path": "phase 40, Swin-T's and NesT-T's LayerNorms",
             "max_abs_err": max(r["max_abs_err"] for r in rows), "shape": rows[0]["shape"],
+            "rows": rows}
+
+
+def _block_attention(dev, tag, gen):
+    """Phase 41. Returns the ``block_attention`` entry of the kernels' JSON line."""
+    import torch
+
+    from fewshot_vit_tpu_torch.kernels import block as ba
+    from fewshot_vit_tpu_torch.kernels.bench import (BLOCK_ATOL, BLOCK_REL_RMS, BLOCK_RTOL,
+                                                     BLOCK_SHAPES)
+
+    bf16, b, k = torch.bfloat16, BLOCK_BATCH, BLOCK_CHECK_IMAGES
+    ba.block_attention.launches = 0
+    rows, launched = [], 0
+    for per_image, n, c, heads in BLOCK_SHAPES:
+        scale = (c // heads) ** -0.5
+        qkv = torch.randn(b, per_image, n, 3 * c, generator=gen, device=dev).to(bf16)
+        bare = torch.full((b, per_image, n, c), float("nan"), dtype=bf16, device=dev)
+        ba._launch(qkv, bare, heads, scale)
+        op = ba.block_attention(qkv, heads, scale)
+        launched += 2
+        err, over, sq_want = 0.0, 0.0, 0.0
+        sq_d = {"bare": 0.0, "op": 0.0}
+        for i in range(0, b, k):
+            want = ba.block_attention_reference(qkv[i:i + k], heads, scale).float()
+            sq_want += want.pow(2).sum().item()
+            for name, got in (("bare", bare), ("op", op)):
+                d = (got[i:i + k].float() - want).abs().nan_to_num(float("inf"))
+                err = max(err, d.max().item())
+                over = max(over, (d - BLOCK_RTOL * want.abs()).max().item())
+                sq_d[name] += d.pow(2).sum().item()
+                del d
+            del want
+        rel = max((sq / sq_want) ** 0.5 for sq in sq_d.values())
+        shape = [b, per_image, n, 3 * c]
+        print(f"block_attention {tag} ({b},{per_image},{n},{3 * c}) heads {heads}: bare launch "
+              f"and op against the plain version, max|d|={err:.3e}, max(|d| - 2^-6 |want|)="
+              f"{over:.3e} (limit {BLOCK_ATOL}), rms(d)/rms(want)={rel:.3e} (limit "
+              f"{BLOCK_REL_RMS})")
+        if over > BLOCK_ATOL:
+            _fail(f"block_attention {tuple(shape)}: the kernel is off its plain version by "
+                  f"{over:.3e} beyond 2^-6 |want|")
+        if rel > BLOCK_REL_RMS:
+            _fail(f"block_attention {tuple(shape)}: the kernel's rms gap to its plain version "
+                  f"is {rel:.3e} of the output's rms")
+        if ba.block_attention.launches != launched:
+            _fail(f"block_attention: expected {launched} launches, counted "
+                  f"{ba.block_attention.launches}")
+        rows.append({"shape": shape, "heads": heads, "max_abs_err": err, "rel_rms": rel})
+        del qkv, bare, op
+        torch.cuda.empty_cache()
+    return {"name": "block_attention", "kernel": "block_attn_kernel", "route": "cuda",
+            "source": "fewshot_vit_tpu_torch/csrc/block_attn.cu", "replaces": None,
+            "launches": launched, "launches_path": "phase 41, NesT-T's levels and 25, 100 tokens",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "rel_rms": max(r["rel_rms"] for r in rows), "shape": rows[0]["shape"],
             "rows": rows}
 
 
@@ -2244,6 +2323,7 @@ def _zoo_forward(dev, tag, tmp):
 
     from fewshot_vit_tpu_torch.core.registry import models
     from fewshot_vit_tpu_torch.kernels.attention import fused_mhsa
+    from fewshot_vit_tpu_torch.kernels.block import block_attention
     from fewshot_vit_tpu_torch.kernels.layer_norm import layer_norm
     from fewshot_vit_tpu_torch.kernels.sinkhorn import sinkhorn_pallas
     from fewshot_vit_tpu_torch.kernels.window import window_attention
@@ -2258,22 +2338,25 @@ def _zoo_forward(dev, tag, tmp):
             dn = str(dtype).split(".")[1]
             enc = models.make(name, dtype=dtype, device=dev, seed=0)
             _zero_counts(fused_mhsa, sinkhorn_pallas)
-            window_attention.launches = layer_norm.launches = 0
+            window_attention.launches = layer_norm.launches = block_attention.launches = 0
             with torch.inference_mode():
                 dense, pooled = enc(x)
             windows, norms = window_attention.launches, layer_norm.launches
+            blocks = block_attention.launches
             bf16 = dtype == torch.bfloat16
             for kernel, got, want in (
                     ("window-attention", windows, ZOO_WINDOW_LAUNCHES.get(name, 0) if bf16 else 0),
-                    ("LayerNorm", norms, ZOO_LAYER_NORM_LAUNCHES.get(name, 0) if bf16 else 0)):
+                    ("LayerNorm", norms, ZOO_LAYER_NORM_LAUNCHES.get(name, 0) if bf16 else 0),
+                    ("block-attention", blocks, ZOO_BLOCK_LAUNCHES.get(name, 0) if bf16 else 0)):
                 if got != want:
                     _fail(f"zoo forward {name} {dn}: expected {want} {kernel} launches, "
                           f"counted {got}")
             e[f"window_launches_{dn}"] = windows
             e[f"layer_norm_launches_{dn}"] = norms
+            e[f"block_launches_{dn}"] = blocks
             counts[f"zoo_forward_{name}_{dn}"] = {
                 **_expect_counts(f"zoo forward {name}", "general", 0),
-                "window_attention": windows, "layer_norm": norms}
+                "window_attention": windows, "layer_norm": norms, "block_attention": blocks}
             if (tuple(dense.shape) != (ZOO_BATCH, *dense_shape)
                     or tuple(pooled.shape) != (ZOO_BATCH, width)):
                 _fail(f"zoo forward {name} {dn}: shapes {tuple(dense.shape)} "
@@ -2287,7 +2370,8 @@ def _zoo_forward(dev, tag, tmp):
               f"Sinkhorn launches 0, window-attention launches {e['window_launches_float32']} "
               f"fp32, {e['window_launches_bfloat16']} bf16, LayerNorm launches "
               f"{e['layer_norm_launches_float32']} fp32, {e['layer_norm_launches_bfloat16']} "
-              f"bf16")
+              f"bf16, block-attention launches {e['block_launches_float32']} fp32, "
+              f"{e['block_launches_bfloat16']} bf16")
         del x
         torch.cuda.empty_cache()
     for name in ZOO_PTH:
@@ -4104,6 +4188,9 @@ def main() -> int:
     # phase 40: the LayerNorm kernel at Swin-T's LayerNorms
     kernels.append(_layer_norm(dev, tag, gen))
     lap("40 (the LayerNorm kernel)")
+    # phase 41: NesT's block attention at NesT-T's levels
+    kernels.append(_block_attention(dev, tag, gen))
+    lap("41 (the block attention)")
 
     # phases 8-10: the two trainers
     val_ds = datasets.make("synthetic", n_classes=20, n_per_class=40, image_size=80, seed=3)
@@ -4200,8 +4287,8 @@ def main() -> int:
         # phases 32-36: the bench entry, the two gates, the graft entry points, the model axis
         slice11, slice11_launches = _slice11(dev, tmp, tag)
     for entry in kernels:
-        # the window and LayerNorm kernels are counted only on the zoo's forwards
-        if entry["name"] in ("window_attention", "layer_norm"):
+        # the window, LayerNorm and block kernels are counted only on the zoo's forwards
+        if entry["name"] in ("window_attention", "layer_norm", "block_attention"):
             entry["zoo_launches"] = {path: c[entry["name"]]
                                      for path, c in zoo_launches.items() if entry["name"] in c}
             continue

@@ -24,8 +24,9 @@ opened inside it from recording.
 Counters. ``count`` adds to a process-wide total and to the innermost open
 span; a span's counts include those of the spans inside it. The counters
 that live as attributes of their own modules (``ATTRIBUTE_COUNTERS``: the
-kernels' ``route_launches``, ``window_attention.launches`` and
-``layer_norm.launches``, ``exact_flows.host_seconds``) are read where
+kernels' ``route_launches``, ``window_attention.launches``,
+``layer_norm.launches`` and ``block_attention.launches``,
+``exact_flows.host_seconds``) are read where
 they live, once their modules are imported, so ``snapshot()["counters"]``
 holds every counter of the port. They count with tracing off, their owners
 set them back to 0, and ``reset`` leaves them alone. (The kernels' modules
@@ -71,6 +72,8 @@ ATTRIBUTE_COUNTERS = {
     "window_attention.launches": ("fewshot_vit_tpu_torch.kernels.window",
                                   "window_attention", "launches"),
     "layer_norm.launches": ("fewshot_vit_tpu_torch.kernels.layer_norm", "layer_norm", "launches"),
+    "block_attention.launches": ("fewshot_vit_tpu_torch.kernels.block", "block_attention",
+                                 "launches"),
 }
 
 

@@ -1,7 +1,7 @@
 """Check and time the hand-written kernels alone on one card, route against route.
 
     python -m fewshot_vit_tpu_torch.kernels.bench [--reps 20] [--ptxas]
-        [--only sinkhorn|window|layer_norm] [--against OTHER/sinkhorn.cu ...]
+        [--only sinkhorn|window|layer_norm|block] [--against OTHER/sinkhorn.cu ...]
 
 Builds ``csrc/*.cu``, prints what ``ptxas -v`` says of every kernel (registers,
 spills, shared memory), holds each route of ``fused_mhsa`` and
@@ -27,8 +27,18 @@ count and the masked tail (``LAYER_NORM_CHECK_WIDTHS``), at row counts of 1,
 (``LAYER_NORM_SHAPES``): the bare launch beside its bytes bound, the plain
 version (fp32 LayerNorm between two casts), and ``F.layer_norm`` on the bf16
 tensor with bf16 weights, the library's yardstick, which the port never
-calls. ``--only`` builds, checks and times one kernel alone. Every line names
-the card and its power limit.
+calls. NesT's block attention (``block_attention``) is checked against its
+plain version at NesT-T's three levels and at the 80 px NesTs' blocks of 25
+and 100 tokens (``BLOCK_SHAPES``), and timed there for a 2,560-image batch:
+the bare launch beside its bytes-or-flops bound, the plain version,
+``scaled_dot_product_attention`` on the same q, k, v views (the library's
+yardstick, never called by the port), and a layer's whole span (qkv,
+attention, proj) on the kernel and on the einsum path, in turns (the
+evidence in ``kernels.block.kernel_takes``). The check holds each output
+element within 1e-2 + 2^-6 |want| and the whole output's relative rms gap
+within ``BLOCK_REL_RMS``.
+``--only`` builds, checks and times one kernel alone. Every line names the
+card and its power limit.
 
 Two speed gates: the packed Sinkhorn route must beat the general route at a
 SUN-D eval batch of 3,000 problems of 13 and of 25 nodes, and the tensor-core
@@ -51,6 +61,7 @@ from . import build
 from . import attention, sinkhorn
 from .attention import fused_mhsa, fused_mhsa_reference
 from .sinkhorn import sinkhorn_pallas, sinkhorn_reference
+from . import block as ba
 from . import layer_norm as ln
 from . import window as wa
 
@@ -88,6 +99,22 @@ LAYER_NORM_SHAPES = ((8028160, 96), (2007040, 384), (2007040, 192), (501760, 768
 LAYER_NORM_CHECK_WIDTHS = (8, 16, 64, 96, 144, 192, 272, 384, 576, 768, 1152, 1536, 1600, 1800,
                            2048)
 LAYER_NORM_CHECK_ROWS = (1, 7, 4099)
+# NesT's block attention, hd 32: (blocks an image, tokens, channels, heads) of
+# NesT-T's three levels at 224 px, then nest_micro_80's level 1 (25 tokens)
+# and nest_micro_resembed_2x_80's last level (100 tokens); timed at
+# BLOCK_IMAGES images, checked at BLOCK_CHECK_IMAGES, the plain version
+# timed over the batch in chunks of BLOCK_PLAIN_IMAGES
+BLOCK_SHAPES = ((16, 196, 96, 3), (4, 196, 192, 6), (1, 196, 384, 12), (16, 25, 128, 4),
+                (1, 100, 512, 16))
+BLOCK_IMAGES, BLOCK_CHECK_IMAGES, BLOCK_PLAIN_IMAGES = 2560, 8, 320
+BLOCK_ATOL, BLOCK_RTOL = 1e-2, 2.0 ** -6
+# the block kernel's relative rms gap to its plain version (block_rel_rms).
+# On an H100, at BLOCK_SHAPES with q,k at std 1 and 2, the kernel read
+# 2.0e-5 to 8.0e-5; the same source with the padded-key mask removed read
+# 1.25e-2 at 196 tokens (every output about 1.2% off, inside the elementwise
+# rule), 2.38e-2 at 100 and 0.149 at 25 with q,k at std 1, and 7.0e-4 to
+# 1.2e-3 at std 2, where the softmax is peaked
+BLOCK_REL_RMS = 5e-4
 # the speed gates (see the module's docstring)
 MHSA_GATE = (10240, 6, 100, 42, BF16)
 SINKHORN_GATE_BATCH = 3000
@@ -255,6 +282,95 @@ def _window(card, gen, dev, reps) -> bool:
     return ok
 
 
+def block_bound_ms(blocks: int, n: int, c: int, heads: int) -> float:
+    """Least ms of one launch over ``blocks`` blocks of ``n`` tokens: q, k,
+    v read and the output written once (bf16) at 3.35 TB/s, or 4 n^2 hd
+    flops a (block, head) at 989 TFLOP/s."""
+    bytes_ = blocks * n * 4 * c * 2
+    flops = blocks * heads * 4 * n * n * (c // heads)
+    return max(bytes_ / 3.35e12, flops / 989e12) * 1e3
+
+
+def block_off(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest of |got - want| - (1e-2 + 2^-6 |want|) over the
+    elements: at most 0 where every element is within the rule (a NaN is
+    infinitely far)."""
+    d = (got.float() - want.float()).abs().nan_to_num(float("inf"))
+    return (d - (BLOCK_ATOL + BLOCK_RTOL * want.float().abs())).max().item()
+
+
+def block_rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """rms(got - want) / rms(want) over the elements, in fp32 (a NaN is
+    infinitely far): the error of the whole output, which a fault that moves
+    every element a little (a padded key left in the softmax) cannot hide
+    under the elementwise rule."""
+    d = (got.float() - want.float()).nan_to_num(float("inf"))
+    return (d.pow(2).mean() / want.float().pow(2).mean()).sqrt().item()
+
+
+def _block(card, gen, dev, reps) -> bool:
+    """The block kernel against its plain version at ``BLOCK_SHAPES`` (the
+    bare launch into a NaN-filled output, and the op; q and k at std 1 and
+    2), then, at a 2,560-image batch, the bare launch timed in turns with
+    SDPA and a layer's span on the kernel and on the einsum path, beside its
+    bound and the plain version."""
+    from ..models.common import init_weights
+    from ..models.nest import NestAttention
+
+    ok = True
+    for per_image, n, c, heads in BLOCK_SHAPES:
+        scale = (c // heads) ** -0.5
+        for std in (1.0, 2.0):
+            qkv = torch.randn(BLOCK_CHECK_IMAGES, per_image, n, 3 * c, generator=gen,
+                              device=dev)
+            qkv[..., :2 * c] *= std
+            qkv = qkv.to(BF16)
+            want = ba.block_attention_reference(qkv, heads, scale)
+            out = torch.full_like(want, float("nan"))
+            ba._launch(qkv, out, heads, scale)
+            got = ba.block_attention(qkv, heads, scale)
+            torch.cuda.synchronize()
+            off = max(block_off(o, want) for o in (out, got))
+            rel = max(block_rel_rms(o, want) for o in (out, got))
+            err = max((o.float() - want.float()).abs().max().item() for o in (out, got))
+            good = off <= 0 and rel <= BLOCK_REL_RMS
+            ok &= good
+            print(f"[{card}] block_attention ({BLOCK_CHECK_IMAGES},{per_image},{n},{3 * c}) heads "
+                  f"{heads} q,k std {std}: max|d|={err:.3e}, worst past 1e-2 + 2^-6|want| "
+                  f"{off:.3e}, rms(d)/rms(want)={rel:.3e} (limit {BLOCK_REL_RMS})"
+                  f"{'' if good else '  FAIL'}")
+            del qkv, want, out, got
+        b = BLOCK_IMAGES
+        attn = NestAttention(c, heads, dtype=BF16)
+        init_weights(attn, torch.Generator().manual_seed(n + c))
+        attn = attn.to(dev).eval()
+        qkv = torch.randn(b, per_image, n, 3 * c, generator=gen, device=dev).to(BF16)
+        out = torch.empty(b, per_image, n, c, dtype=BF16, device=dev)
+        y = torch.randn(b, per_image, n, c, generator=gen, device=dev).to(BF16)
+        views = qkv.reshape(b * per_image, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        with torch.inference_mode():
+            fns = {"kernel": lambda: ba._launch(qkv, out, heads, scale),
+                   "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                       *views, scale=scale),
+                   "span_kernel": lambda: attn.fused(y),
+                   "span_einsum": lambda: attn(y)}
+            ms = {name: [] for name in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                ms[name].append(time_ms(fns[name], reps))
+            chunks = [qkv[i:i + BLOCK_PLAIN_IMAGES] for i in range(0, b, BLOCK_PLAIN_IMAGES)]
+            plain = time_ms(lambda: [ba.block_attention_reference(x, heads, scale)
+                                     for x in chunks], 1, warm=1)
+        bound = block_bound_ms(b * per_image, n, c, heads)
+        kernel = sum(ms["kernel"]) / 2
+        spans = {k: sum(ms[k]) / 2 for k in ("span_kernel", "span_einsum")}
+        print(f"[{card}] block_attention ({b},{per_image},{n},{3 * c}) heads {heads} ms: {ms}, "
+              f"bound {bound:.4f} ({100 * bound / kernel:.1f}% of it), plain {plain:.3f}; span "
+              f"kernel/einsum {spans['span_kernel'] / spans['span_einsum']:.3f}")
+        del qkv, out, y, views, attn, chunks
+        torch.cuda.empty_cache()
+    return ok
+
+
 def layer_norm_bound_ms(rows: int, c: int) -> float:
     """Least ms of one launch: the bf16 rows read and written once and the
     fp32 weight and bias read once, at 3.35 TB/s."""
@@ -356,7 +472,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--ptxas", action="store_true", help="print every kernel's ptxas line")
-    p.add_argument("--only", choices=("sinkhorn", "window", "layer_norm"),
+    p.add_argument("--only", choices=("sinkhorn", "window", "layer_norm", "block"),
                    help="one kernel alone")
     p.add_argument("--against", nargs="+", default=(),
                    help="other sinkhorn.cu files whose general route is timed beside this one's")
@@ -368,7 +484,8 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card)
     logs = build.build({"sinkhorn": ("sinkhorn",), "window": ("window_attn",),
-                        "layer_norm": ("layer_norm",)}.get(args.only, build.SOURCES))
+                        "layer_norm": ("layer_norm",), "block": ("block_attn",)}.get(
+                            args.only, build.SOURCES))
     for name, log in logs.items():
         lines = build.ptxas_summary(log)
         spills = [x for x in lines if "spill" in x]
@@ -378,12 +495,13 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    if args.only in ("window", "layer_norm"):
-        return 0 if {"window": _window, "layer_norm": _layer_norm}[args.only](
-            card, gen, dev, args.reps) else 1
+    alone = {"window": _window, "layer_norm": _layer_norm, "block": _block}
+    if args.only in alone:
+        return 0 if alone[args.only](card, gen, dev, args.reps) else 1
     sinkhorn_only = args.only == "sinkhorn"
-    ok = True if sinkhorn_only else _window(card, gen, dev, args.reps) & _layer_norm(
-        card, gen, dev, args.reps)
+    ok = True if sinkhorn_only else (_window(card, gen, dev, args.reps)
+                                     & _layer_norm(card, gen, dev, args.reps)
+                                     & _block(card, gen, dev, args.reps))
     ok &= _sinkhorn_general(card, gen, dev, args.reps,
                            {src: _against(src, str(i)) for i, src in enumerate(args.against)})
     for b, h, t, hd in () if sinkhorn_only else MHSA_EDGES:

@@ -238,7 +238,9 @@ class Conv(nn.Module):
 
 class Linear(nn.Module):
     """flax's ``Dense`` over the last axis with an ``nn.Linear`` weight
-    (O, I): input and weights cast to ``dtype``, output in ``dtype``."""
+    (O, I): input and weights cast to ``dtype``, output in ``dtype``.
+    ``columns`` (a call's option) takes the weight's input columns in that
+    order: for an input whose features come permuted."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32, init: str = "trunc"):
@@ -249,11 +251,12 @@ class Linear(nn.Module):
         self.init = init
         self.tp = None  # parallel.mesh.param_shardings: column-parallel over `model`
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, columns: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.tp is not None:
             x = self.tp.enter(x)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        w = self.weight if columns is None else self.weight[:, columns]
+        y = F.linear(x.to(self.dtype), w.to(self.dtype), b)
         return y if self.tp is None else self.tp.leave(y)
 
 

@@ -21,9 +21,19 @@ or the conv stem), ``encoder.stage1`` .. ``encoder.stage<n>`` (a level with
 the ConvPool that feeds it, its positional add, its layers and the
 deblockify; the last one the final norm and pooling), and in every
 transformer layer ``encoder.block_attn`` (the qkv projection, the attention
-within each block, the proj projection; ``norm1`` stays outside). Counter
-``encoder.blocks``: blocks attended, B * T a layer (48 an image for NesT-T
-at 224 px).
+within each block, the proj projection; ``norm1`` stays outside). Counters
+under it: ``encoder.blocks``, blocks attended, B * T a layer (48 an image for
+NesT-T at 224 px); ``encoder.blocks_fused``, those of them the block kernel
+computed (0 on the einsum path).
+
+A standard-kind layer's attention takes the hand-written block kernel
+(``block_route``: ``kernels/block.py``, op
+``fewshot_vit_tpu_torch::block_attention``) between the qkv and proj
+projections where it can: CUDA, bf16, no gradient recorded, no capture,
+attention dropout off, a block size and head width the kernel is routed
+for. Its output merges heads head-major, and the proj projection takes its
+weight's input columns in that order. Everything else (training, the CPU,
+fp32, GPSA, the ``rel`` kind, other head widths) takes the einsum path.
 
 State-dict keys are the reference's (``levels.1.transformer_encoder.0.attn.qkv``,
 ``levels.0.pos_embed``, ``levels.1.pool.conv``, ``patch_embed.proj``), the
@@ -42,12 +52,14 @@ from torch import nn
 from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
+from ..kernels.block import block_attention, head_major_columns, kernel_takes
 from .common import (
     Conv,
     DropPath,
     Dropout,
     LayerNorm,
     Linear,
+    capturing,
     init_weights,
     max_pool,
     sow,
@@ -93,6 +105,9 @@ class NestAttention(nn.Module):
                 torch.zeros((2 * window - 1) ** 2, num_heads))
             self.register_buffer("relative_position_index", torch.from_numpy(
                 relative_position_index(window).reshape(-1)), persistent=False)
+        else:  # the proj weight's input columns in the block kernel's merge order
+            self.register_buffer("head_major", head_major_columns(dim, num_heads),
+                                 persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, n, c = x.shape
@@ -110,6 +125,26 @@ class NestAttention(nn.Module):
         # head-dim-major merge: channel = d * H + h (the reference's permute)
         out = torch.einsum("bthqk,btkhd->btqdh", attn, v).reshape(b, t, n, c)
         return self.proj_drop(self.proj(out))
+
+    def fused(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, N, C) -> (B, T, N, C): qkv, the block kernel (heads merged
+        head-major), proj over its input columns in that order; the same
+        function as ``forward`` of the standard kind."""
+        hd = x.shape[-1] // self.num_heads
+        out = block_attention(self.qkv(x), self.num_heads, hd ** -0.5)
+        return self.proj_drop(self.proj(out, columns=self.head_major))
+
+
+def block_route(device: torch.device, dtype: torch.dtype, tokens: int, head_dim: int,
+                dropout: bool, kind: str) -> bool:
+    """True where a layer's block attention takes the block kernel: the
+    standard kind, CUDA tensors, a dtype, block size and head width the
+    kernel takes (``kernels.block.kernel_takes``), no gradient
+    recorded, no capture (the standard kind sows its probabilities),
+    attention dropout off. Everything else takes the einsum path."""
+    return (kind == "standard" and device.type == "cuda"
+            and kernel_takes(dtype, tokens, head_dim) and not torch.is_grad_enabled()
+            and not capturing() and not dropout)
 
 
 def gpsa_rel_indices(n: int) -> np.ndarray:
@@ -164,6 +199,7 @@ class NestTransformerLayer(nn.Module):
                  drop_path: float = 0.0, attn_type: str = "standard", block: int = 5,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.attn_type = attn_type
         self.norm1 = LayerNorm(dim, LN_EPS, dtype)
         if attn_type == "gpsa":
             self.attn = NestGPSA(dim, num_heads, block, qkv_bias, attn_drop, drop, dtype)
@@ -176,9 +212,15 @@ class NestTransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.norm1(x)
+        attn = self.attn
         with trace.span("encoder.block_attn"):
-            trace.count("encoder.blocks", x.shape[0] * x.shape[1])
-            y = self.attn(y)
+            blocks = x.shape[0] * x.shape[1]
+            trace.count("encoder.blocks", blocks)
+            fused = block_route(y.device, y.dtype, y.shape[2], y.shape[3] // attn.num_heads,
+                                attn.attn_drop.rate > 0 and attn.attn_drop.training,
+                                self.attn_type)
+            trace.count("encoder.blocks_fused", blocks if fused else 0)
+            y = attn.fused(y) if fused else attn(y)
         x = x + self.drop_path(y)
         return x + self.drop_path(self.mlp(self.norm2(x)))
 

@@ -15,7 +15,8 @@ import torch
 from fewshot_vit_tpu_torch.heads.deepemd import emd_logits
 from fewshot_vit_tpu_torch.kernels import attention as tk
 from fewshot_vit_tpu_torch.kernels import sinkhorn as tks
-from fewshot_vit_tpu_torch.kernels.bench import (LAYER_NORM_CHECK_ROWS, LAYER_NORM_CHECK_WIDTHS,
+from fewshot_vit_tpu_torch.kernels.bench import (BLOCK_REL_RMS, LAYER_NORM_CHECK_ROWS,
+                                                 LAYER_NORM_CHECK_WIDTHS, block_rel_rms,
                                                  layer_norm_off)
 from fewshot_vit_tpu_torch.models.visformer import Visformer
 from fewshot_vit_tpu_torch.ops.emd import normalize_weights
@@ -597,6 +598,112 @@ def test_window_op_on_the_card(cuda_device):  # noqa: F811
     torch.library.opcheck(tw.window_attention_op, (qkv, table, 6, 7, 3, 32 ** -0.5))
     with pytest.raises(ValueError):  # fp32 is the einsum path's
         tw.window_attention(qkv.float(), table, 6, 7, 3, 32 ** -0.5)
+
+
+# NesT's block attention, hd 32: (blocks an image, tokens, channels, heads) of
+# NesT-T's three levels at 224 px, nest_micro_80's level 1 and
+# nest_micro_resembed_2x_80's last level
+NEST_BLOCKS = [(16, 196, 96, 3), (4, 196, 192, 6), (1, 196, 384, 12), (16, 25, 128, 4),
+               (1, 100, 512, 16)]
+# the edges of the source's instantiations (n-tiles of 8 keys 4, 13, 25: up
+# to 32, 104 and 200 tokens), which the route takes too
+EDGE_BLOCKS = [(3, 1, 64, 2), (2, 32, 32, 1), (2, 33, 96, 3), (2, 104, 64, 2), (2, 105, 64, 2),
+               (2, 200, 128, 4)]
+
+
+@pytest.mark.parametrize("per_image,n,c,heads", NEST_BLOCKS + EDGE_BLOCKS)
+@pytest.mark.parametrize("std", [1.0, 2.0])
+def test_block_kernel_matches_the_reference(cuda_device, per_image, n, c, heads,  # noqa: F811
+                                            std):
+    """The bare launch into a NaN-filled output and the op, against
+    ``block_attention_reference`` on the CPU from the same bf16 qkv (q and k
+    at std 1 and 2, so some rows' softmax is peaked), within the window
+    kernel's rule, 1e-2 + 2^-6 |want|: the probabilities' bf16 rounding,
+    which ex2.approx can move by one ulp, and one bf16 ulp of the output. An
+    element the kernel does not write (a padded row or key leaking, a row
+    left out) stays NaN and fails. The whole output's rms gap, relative to
+    its rms, stays within ``BLOCK_REL_RMS``: a padded key left unmasked moves
+    every element by about 1.2% at 196 tokens, inside the elementwise rule,
+    and fails there."""
+    from fewshot_vit_tpu_torch.kernels import block as tb
+
+    rng = np.random.default_rng(n + c)
+    x = rng.normal(size=(2, per_image, n, 3 * c)).astype(np.float32)
+    x[..., :2 * c] *= std
+    qkv = torch.from_numpy(x).to(torch.bfloat16)
+    want = tb.block_attention_op(qkv, heads, 32 ** -0.5).float()
+    q = qkv.to(cuda_device)
+    bare = torch.full((2, per_image, n, c), float("nan"), dtype=torch.bfloat16,
+                      device=cuda_device)
+    before = tb.block_attention.launches
+    tb._launch(q, bare, heads, 32 ** -0.5)
+    got = tb.block_attention(q, heads, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert tb.block_attention.launches == before + 2
+    for out in (bare, got):
+        assert out.dtype == torch.bfloat16
+        d = (out.cpu().float() - want).abs().nan_to_num(float("inf"))
+        assert (d <= 1e-2 + 2.0 ** -6 * want.abs()).all()
+        assert block_rel_rms(out.cpu(), want) <= BLOCK_REL_RMS
+
+
+def _nest_t(dtype, device):
+    """NesT-T at 224 px with the NesT cell's scales: linear kernels at
+    1 / sqrt(fan_in), positional embeddings at std 0.25."""
+    from fewshot_vit_tpu_torch.core.registry import models
+
+    enc = models.make("nest_tiny_s196_224", dtype=dtype, device="cpu", seed=3)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith("pos_embed"):
+                p.copy_(0.25 * torch.randn(p.shape, generator=gen))
+            elif p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=gen) / p.shape[1] ** 0.5)
+    return enc.to(device)
+
+
+def test_nest_forward_with_the_block_kernel_matches_the_einsum_path(cuda_device):  # noqa: F811
+    """A bf16 NesT-T forward without autograd launches the block kernel once
+    a layer (12), every block counted as fused; with autograd on, and in
+    fp32, it takes the einsum path. Both bf16 forwards are held against the
+    fp32 forward: the kernel's rms gap may be at most the NesT cell's
+    ``logit_vs_bf16`` limit (4.0) times the einsum path's."""
+    from fewshot_vit_tpu_torch.core import trace
+    from fewshot_vit_tpu_torch.kernels import block as tb
+
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(4, 224, 224, 3))
+                         .astype(np.float32)).to(cuda_device)
+    enc16, enc32 = _nest_t(torch.bfloat16, cuda_device), _nest_t(torch.float32, cuda_device)
+    before = tb.block_attention.launches
+    trace.reset()
+    trace.enable()
+    try:
+        with torch.no_grad():
+            fused, ref = enc16(x), enc32(x)
+        torch.cuda.synchronize()
+        snap = trace.reset()
+    finally:
+        trace.disable()
+    assert tb.block_attention.launches == before + 12
+    assert snap["counters"]["encoder.blocks"] == 2 * 4 * 48
+    assert snap["counters"]["encoder.blocks_fused"] == 4 * 48
+    with torch.enable_grad():
+        einsum = [t.detach() for t in enc16(x)]
+    torch.cuda.synchronize()
+    assert tb.block_attention.launches == before + 12
+    for a, b, r in zip(fused, einsum, ref):
+        gap = (a.float() - r).pow(2).mean().sqrt().item()
+        assert gap <= 4.0 * (b.float() - r).pow(2).mean().sqrt().item()
+
+
+def test_block_op_on_the_card(cuda_device):  # noqa: F811
+    from fewshot_vit_tpu_torch.kernels import block as tb
+
+    qkv = torch.randn(2, 4, 196, 3 * 192, device=cuda_device).to(torch.bfloat16)
+    torch.library.opcheck(tb.block_attention_op, (qkv, 6, 32 ** -0.5))
+    with pytest.raises(ValueError):  # fp32 is the einsum path's
+        tb.block_attention(qkv.float(), 6, 32 ** -0.5)
 
 
 def _norm_inputs(rows, c, seed, device):
