@@ -13,6 +13,16 @@
   * ``fold_bn``: biased Linears and no BatchNorm (``models/fold.py::fold_levit``);
   * forward: NHWC (B, H, W, 3) -> (dense NHWC, pooled).
 
+Spans (``core/trace.py``): ``encoder`` > ``encoder.stem`` (the ConvStem),
+``encoder.stage1`` .. ``encoder.stage<n>`` (a stage's blocks with the
+``LevitAttentionSubsample`` and MLP that feed it; the last one the pooling
+too), and in every ``LevitAttention`` and ``LevitAttentionSubsample`` call
+``encoder.bias_attn`` (the qkv, or kv and q, LinearNorms through the
+attention and the hard-swish to the proj LinearNorm; the residual add and
+the MLP stay outside): 8 a ``levit_micro_80`` forward. Counter
+``encoder.attn_scores``: B * heads * Nq * Nkv a call (1,125,000 an image
+for ``levit_micro_80`` at 80 px).
+
 State-dict keys are the reference's, Residual-wrapped blocks under ``.m``
 (``blocks.0.m.qkv.c``, ``blocks.0.m.proj.1.c``, ``blocks.1.m.0.bn``,
 ``blocks.2.q.1.c``), the keys ``checkpoint/from_flax.py::levit_key`` gives.
@@ -29,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import trace
 from ..core.device import resolve_device
 from ..core.registry import models
 from .common import BatchNorm2d, DropPath, Foldable, Linear, init_weights
@@ -104,9 +115,11 @@ class LevitAttention(nn.Module):
         self.attention_biases = nn.Parameter(torch.zeros(num_heads, n_off))
         self.register_buffer("attention_bias_idxs", torch.from_numpy(idxs), persistent=False)
 
+    @trace.span("encoder.bias_attn")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         kd, h = self.key_dim, self.num_heads
+        trace.count("encoder.attn_scores", b * h * n * n)
         q, k, v = self.qkv(x).reshape(b, n, h, 2 * kd + self.d).split([kd, kd, self.d], dim=-1)
         attn = _biased_softmax(q, k, self.attention_biases, self.attention_bias_idxs, kd ** -0.5)
         return self.proj(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, h * self.d))
@@ -129,11 +142,13 @@ class LevitAttentionSubsample(nn.Module):
         self.attention_biases = nn.Parameter(torch.zeros(num_heads, n_off))
         self.register_buffer("attention_bias_idxs", torch.from_numpy(idxs), persistent=False)
 
+    @trace.span("encoder.bias_attn")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         kd, h = self.key_dim, self.num_heads
         k, v = self.kv(x).reshape(b, n, h, kd + self.d).split([kd, self.d], dim=-1)
         q = self.q(x)
+        trace.count("encoder.attn_scores", b * h * q.shape[1] * n)
         q = q.reshape(b, q.shape[1], h, kd)
         attn = _biased_softmax(q, k, self.attention_biases, self.attention_bias_idxs, kd ** -0.5)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
@@ -185,11 +200,13 @@ class Levit(Foldable, nn.Module):
         self.drop_path = DropPath(drop_path_rate)
         res = img_size // 4  # the stem's stride
         blocks = []
+        self.stage_ends = []  # blocks[start:end] of each stage, its feeding blocks included
         for i, ed in enumerate(embed_dim):
             for _ in range(depth[i]):
                 blocks.append(Residual(LevitAttention(ed, key_dim, num_heads[i], attn_ratio, res,
                                                       fold_bn, dtype)))
                 blocks.append(Residual(levit_mlp(ed, ed * mlp_ratio, fold_bn, dtype)))
+            self.stage_ends.append(len(blocks))
             if i < len(embed_dim) - 1:
                 # down_ops: heads embed_dim // key_dim, attn_ratio 4, stride 2
                 blocks.append(LevitAttentionSubsample(ed, embed_dim[i + 1], key_dim,
@@ -203,16 +220,23 @@ class Levit(Foldable, nn.Module):
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device).eval()
 
+    @trace.span("encoder")
     def forward(self, x: torch.Tensor):
-        x = self.patch_embed(x)
+        with trace.span("encoder.stem"):
+            x = self.patch_embed(x)
         b, r, _, c = x.shape
         x = x.reshape(b, r * r, c)
-        for blk in self.blocks:
-            if isinstance(blk, Residual):
-                x = x + self.drop_path(blk.m(x))
-            else:
-                x = blk(x)
-        return x.reshape(b, self.res, self.res, -1), x.mean(dim=1)
+        start = 0
+        for i, end in enumerate(self.stage_ends, start=1):
+            with trace.span(f"encoder.stage{i}"):
+                for blk in self.blocks[start:end]:
+                    if isinstance(blk, Residual):
+                        x = x + self.drop_path(blk.m(x))
+                    else:
+                        x = blk(x)
+                start = end
+                if i == len(self.stage_ends):  # the last stage: pooling
+                    return x.reshape(b, self.res, self.res, -1), x.mean(dim=1)
 
 
 models.register("levit_micro_80")(
